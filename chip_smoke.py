@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases, one JSON line each:
+
+  1. card     — name and power limit (nvidia-smi), device count
+  2. build    — nvcc builds of every kernel under src/repro_torch/kernels/csrc
+  3. kernels  — each kernel against its plain PyTorch version on the card at
+                the main path's shapes (qgemm: int32-exact and the bf16 pdot
+                epilogue bitwise; paged attention: partial leases and
+                poisoned cells, 1e-5), then timed beside its plain version,
+                a PyTorch library yardstick and its bound
+  4. serve    — the main path at full width: tinyllama-1.1b W8A8, fused
+                prefill-with-cache admission, block-native paged decode
+                through both kernels (repro_torch.launch.serve), with every
+                kernel's launch count read around the run; a second run of
+                the same traffic must give the same tokens
+  5. reference — the full-width model on the card against the same model
+                on the CPU through the plain versions (f32 compute dtype:
+                prefill and three decode steps)
+  6. decode_profile — host time of a served decode step beside the device
+                time torch.profiler sees in it, and its top kernels
+
+then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line. Any failed check exits nonzero before the last line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core peak
+F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+
+ROOT = Path(__file__).resolve().parent
+SERVE_ARGS = ["--arch", "tinyllama-1.1b", "--quantize", "serve",
+              "--cache-backend", "paged", "--paged-native", "--paged-kernel",
+              "--slots", "8", "--requests", "8", "--prompt-len", "128",
+              "--gen", "32", "--stagger-steps", "2", "--device", "cuda"]
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def phase(label, **fields):
+    print(json.dumps({"phase": label, **fields}), flush=True)
+
+
+def time_ms(fn, iters):
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, from CUDA
+    events, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+L2_BYTES = 50e6                # H100 L2 cache
+
+
+def cold_copies(make, nbytes):
+    """Enough independent copies of an operand (``make()`` each) that cycling
+    through them streams more than twice the L2 cache: each timed call then
+    reads its operand from device memory, as a decode step reads each
+    layer's weights and pool once."""
+    return [make() for _ in range(max(2, int(2 * L2_BYTES // nbytes) + 1))]
+
+
+# --------------------------------------------------------------- qgemm
+
+def bound(moved_bytes, ops, ops_per_s):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def qgemm_bound(M, K, N, out_bytes=2):
+    """Each input read once (int8 A and B, f32 scales), the output written once."""
+    moved = M * K + K * N + 4 * (M + N) + out_bytes * M * N
+    return bound(moved, 2 * M * K * N, INT8_OPS_PER_S)
+
+
+def check_qgemm(dev):
+    import torch
+    from repro_torch.kernels.qgemm import qgemm, qgemm_plain
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pairs = [(2048, 256), (2048, 2048), (2048, 5632), (5632, 2048), (2048, 32000)]
+    cases = [(M, K, N) for M in (1, 8, 1024) for K, N in pairs] + [(37, 130, 257)]
+    max_err = 0.0
+    for M, K, N in cases:
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        ones = torch.ones(N, device=dev)
+        acc = qgemm(a, b, ones)
+        exact = (a.double() @ b.double())
+        check(torch.equal(acc.double(), exact), f"qgemm int32 accumulation {M}x{K}x{N}")
+        sb = torch.rand(N, generator=gen, device=dev) * 1e-2 + 1e-4
+        sa = torch.rand(M, generator=gen, device=dev) * 1e-1 + 1e-3
+        out = qgemm(a, b, sb, sa, torch.bfloat16)
+        ref = qgemm_plain(a, b, sb, sa, torch.bfloat16)
+        check(torch.equal(out, ref), f"qgemm bf16 pdot epilogue {M}x{K}x{N}")
+        out32 = qgemm(a, b, sb)
+        max_err = max(max_err, float((out32 - qgemm_plain(a, b, sb)).abs().max()))
+    check(max_err == 0.0, f"qgemm f32 output differs from plain by {max_err}")
+    torch.cuda.synchronize()
+    return {"cases": len(cases), "max_abs_err": max_err}
+
+
+def time_qgemm(dev):
+    """Kernel, plain and library times at every main-path projection shape:
+    decode (M = 8 slots) and one admission (M = 128 = one 128-token bucket),
+    with the weight operand cold (``cold_copies``)."""
+    import itertools
+    import torch
+    from repro_torch.kernels.qgemm import qgemm, qgemm_plain
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for M in (8, 128):
+        for K, N in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)):
+            a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+            bs = cold_copies(lambda: torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                                                   dtype=torch.int8), K * N)
+            sb = torch.rand(N, generator=gen, device=dev) * 1e-2
+            sa = torch.rand(M, generator=gen, device=dev) * 1e-1
+            cyc = itertools.cycle(bs)
+            ms = time_ms(lambda: qgemm(a, next(cyc), sb, sa, torch.bfloat16), 50)
+            plain = time_ms(lambda: qgemm_plain(a, next(cyc), sb, sa, torch.bfloat16), 10)
+            lib = None
+            if M > 16 and K % 8 == 0 and N % 8 == 0:   # torch._int_mm's limits
+                lib = time_ms(lambda: torch._int_mm(a, next(cyc)), 50)
+            bound_ms, by = qgemm_bound(M, K, N)
+            rows.append({"M": M, "K": K, "N": N, "ms": ms, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": bound_ms, "bound_by": by})
+            del bs
+    return rows
+
+
+# ----------------------------------------------------- paged attention
+
+def paged_case(dev, B=8, H=32, KV=4, hd=64, bs=16, MB=10, seed=3):
+    """Main-path shapes: 8 slots, 160-token rows in 16-token blocks, partial
+    leases, horizons inside each lease, bf16 pools."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    NB = B * MB + 1
+    q = torch.randn((B, H, hd), generator=gen)
+    k = torch.randn((NB, bs, KV, hd), generator=gen).to(torch.bfloat16)
+    v = torch.randn((NB, bs, KV, hd), generator=gen).to(torch.bfloat16)
+    tables = torch.zeros((B, MB), dtype=torch.int32)
+    index = torch.zeros((B,), dtype=torch.int32)
+    free = list(range(1, NB))
+    for b in range(B):
+        n_lease = int(torch.randint(MB // 2, MB + 1, (1,), generator=gen))
+        for j in range(n_lease):
+            tables[b, j] = free.pop()
+        index[b] = int(torch.randint(0, n_lease * bs, (1,), generator=gen))
+    return [t.to(dev) for t in (q, k, v, tables, index)]
+
+
+def paged_bound(q, k_pool, tables, index):
+    """Bytes: q and out in f32, the tables and index, and the K and V cells
+    of every position this run's horizons reach. Operations: q.k and p.v,
+    2*hd each per head and position, on the f32 units."""
+    B, H, hd = q.shape
+    KV = k_pool.shape[2]
+    S = tables.shape[1] * k_pool.shape[1]
+    positions = int((index.clamp(max=S - 1) + 1).sum())     # cells this run reads
+    moved = (2 * B * H * hd * 4 + tables.numel() * 4 + index.numel() * 4
+             + 2 * positions * KV * hd * k_pool.element_size())
+    return bound(moved, 4 * positions * H * hd, F32_OPS_PER_S)
+
+
+def check_paged(dev):
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    q, k, v, tables, index = paged_case(dev)
+    out = paged_decode_attention(q, k, v, tables, index)
+    ref = paged_decode_attention_plain(q, k, v, tables, index)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5), f"paged attention err {err}")
+    # poison the null block and every cell past each slot's horizon
+    kp, vp = k.clone(), v.clone()
+    kp[0], vp[0] = 1e4, 1e4
+    bs = k.shape[1]
+    for b in range(tables.shape[0]):
+        for j in range(tables.shape[1]):
+            blk = int(tables[b, j])
+            if blk:
+                for t in range(bs):
+                    if j * bs + t > int(index[b]):
+                        kp[blk, t], vp[blk, t] = -1e4, -1e4
+    poisoned = paged_decode_attention(q, kp, vp, tables, index)
+    check(torch.allclose(poisoned, out, rtol=1e-5, atol=1e-5),
+          "paged attention leaks masked cells")
+    # one more head layout: MHA, f32 pools, a full lease
+    q2, k2, v2, t2, i2 = paged_case(dev, B=3, H=4, KV=4, hd=16, bs=8, MB=3, seed=4)
+    k2, v2 = k2.float(), v2.float()
+    err2 = float((paged_decode_attention(q2, k2, v2, t2, i2)
+                  - paged_decode_attention_plain(q2, k2, v2, t2, i2)).abs().max())
+    check(err2 <= 1e-5, f"paged attention (MHA, f32 pools) err {err2}")
+    torch.cuda.synchronize()
+    return {"max_abs_err": max(err, err2)}
+
+
+def time_paged(dev):
+    """Kernel, plain and library times at the main-path shape, pools cold."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    q, k, v, tables, index = paged_case(dev)
+    # cold pools: each layer of a decode step reads its own pool once
+    pools = itertools.cycle(cold_copies(lambda: (k.clone(), v.clone()),
+                                        2 * k.numel() * k.element_size()))
+    ms = time_ms(lambda: paged_decode_attention(q, *next(pools), tables, index), 100)
+    plain = time_ms(lambda: paged_decode_attention_plain(q, *next(pools), tables, index), 20)
+    # yardstick: SDPA over the already-gathered, head-expanded bf16 view
+    B, H, hd = q.shape
+    S = tables.shape[1] * k.shape[1]
+    rep = H // k.shape[2]
+
+    def gathered(pool):
+        g = pool[tables.reshape(-1).long()].reshape(B, S, -1, hd).repeat_interleave(rep, 2)
+        return g.transpose(1, 2).contiguous()
+
+    views = itertools.cycle(cold_copies(lambda: (gathered(k), gathered(v)),
+                                        2 * B * H * S * hd * k.element_size()))
+    qb = q.to(torch.bfloat16)[:, :, None]
+    mask = (torch.arange(S, device=dev)[None, :] <= index[:, None])[:, None, None, :]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qb, *next(views), attn_mask=mask), 100)
+    bound_ms, by = paged_bound(q, k, tables, index)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound_ms,
+            "bound_by": by}
+
+
+# -------------------------------------------------------------- main path
+
+def serve_once():
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.qgemm import qgemm
+    from repro_torch.launch import serve
+    qgemm.launches = 0
+    paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs, stats = serve.run(SERVE_ARGS)
+    wall = time.perf_counter() - t0
+    return reqs, stats, wall, {"qgemm": qgemm.launches,
+                               "paged_decode_attention": paged_decode_attention.launches}
+
+
+def check_serve():
+    from repro_torch.configs import get_config
+    cfg = get_config("tinyllama-1.1b")
+    reqs, stats, wall, launches = serve_once()
+    gen = int(SERVE_ARGS[SERVE_ARGS.index("--gen") + 1])
+    check(all(r.done and len(r.tokens) == gen for r in reqs), "a request did not finish")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.tokens), "token out of vocab")
+    steps = stats["decode_steps"]
+    check(launches["paged_decode_attention"] == steps * cfg.n_layers,
+          f"paged attention launched {launches['paged_decode_attention']} times, "
+          f"expected {steps} decode steps x {cfg.n_layers} layers")
+    # per forward: q, k, v, o, wi, wg, wo per layer, plus the lm_head
+    per_forward = 7 * cfg.n_layers + 1
+    forwards = steps + stats["prefill_batches"]
+    check(launches["qgemm"] == per_forward * forwards,
+          f"qgemm launched {launches['qgemm']} times, expected {per_forward} x "
+          f"{forwards} forwards")
+    reqs2, _, _, _ = serve_once()
+    check([r.tokens for r in reqs2] == [r.tokens for r in reqs],
+          "a second run of the same traffic gave other tokens")
+    return launches, {
+        "requests": len(reqs), "decode_steps": steps,
+        "prefill_batches": stats["prefill_batches"],
+        "tokens_generated": stats["tokens_generated"],
+        "sustained_tok_s": stats["sustained_tok_s"], "wall_s": wall,
+        "prefill_wait_s": stats["prefill_wait_s"], "seed_write_s": stats["seed_write_s"],
+        "mean_ttft_ms": 1e3 * sum(r.metrics.ttft_s for r in reqs) / len(reqs),
+        "launches": launches,
+    }
+
+
+def _prefill_then_decode(params, cfg, tokens, n_steps, feed=None):
+    """Prefill ``tokens`` (B, P) through the port's fused admission step,
+    seed a paged store with the K/V, and run ``n_steps`` block-native decode
+    steps, feeding each step's greedy tokens (or ``feed[i]``). Returns the
+    prefill logits, each decode step's logits, and the fed tokens."""
+    import torch
+    from repro_torch.models import serve as SV
+    from repro_torch.serving.store import PagedKVStore
+    B, P = tokens.shape
+    dev = tokens.device
+    store = PagedKVStore(cfg, B, P + 16 * ((n_steps + 15) // 16 + 1),
+                         block_size=16, device=dev)
+    for b in range(B):
+        check(store.lease(b, P, n_steps + 1), "lease refused")
+    logits, kv = SV.prefill_with_cache(params, cfg, tokens)
+    store.write_slots(list(range(B)), kv, [P] * B)
+    toks = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+    steps, fed = [], []
+    for i in range(n_steps):
+        if feed is not None:
+            toks = feed[i].to(dev)
+        fed.append(toks.cpu())
+        out, cache = SV.decode_paged(params, cfg, store.decode_cache(), toks)
+        store.swap(cache)
+        steps.append(out[:, -1])
+        toks = out[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+    return logits, steps, fed
+
+
+def check_reference():
+    """The full-width model on the card (kernels) against the same model on
+    the CPU (plain versions), same weights and inputs, in the f32 compute
+    dtype: a 16-token prefill of 2 prompts and 3 block-native decode steps.
+
+    Tolerance: RMS difference <= 1.5% and max <= 6% of the CPU logits'
+    absolute max, and the same greedy token wherever the CPU's top-2 margin
+    exceeds 0.3. Transcendentals and f32 sums differ in their last bits
+    between the two devices, and the full-width W8A8 model amplifies a
+    last-bit change: it moves int8 activation codes, 1/127 of a row's range
+    each, and 22 layers carry them on. The phase reports that sensitivity
+    beside the comparison: the CPU prefill again with every embedding entry
+    moved by one f32 ulp. A broken kernel moves the logits by their whole
+    size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tensorizer as tz
+    from repro_torch.launch.serve import quant_predicate
+    from repro_torch.models import init_model, serve as SV
+    cfg = get_config("tinyllama-1.1b").replace(quantize="serve", dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tz.quantize_params(init_model(cfg, gen, device="cuda"),
+                                predicate=quant_predicate)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(5))
+    cpu_params = _to_cpu(params)
+    c_pre, c_steps, fed = _prefill_then_decode(cpu_params, cfg, tokens, 3)
+    g_pre, g_steps, _ = _prefill_then_decode(params, cfg, tokens.cuda(), 3, feed=fed)
+    nudged = dict(cpu_params, embed=torch.nextafter(
+        cpu_params["embed"], torch.full_like(cpu_params["embed"], float("inf"))))
+    n_pre, _ = SV.prefill_with_cache(nudged, cfg, tokens)
+    dn = (n_pre.float() - c_pre.float()).abs()
+    out = {"cpu_one_ulp_embed_sensitivity": {
+        "max_abs_diff": float(dn.max()), "rms_diff": float(dn.pow(2).mean().sqrt()),
+        "abs_max": float(c_pre.float().abs().max())}}
+    for name, g, c in [("prefill", g_pre, c_pre)] + [
+            (f"decode{i}", g, c) for i, (g, c) in enumerate(zip(g_steps, c_steps))]:
+        g, c = g.float().cpu(), c.float()
+        check(bool(torch.isfinite(g).all()), f"non-finite {name} logits on the card")
+        d = (g - c).abs()
+        scale, rms = float(c.abs().max()), float(d.pow(2).mean().sqrt())
+        check(float(d.max()) <= 0.06 * scale and rms <= 0.015 * scale,
+              f"card vs CPU {name} logits: max {float(d.max())}, rms {rms}, "
+              f"scale {scale}")
+        top2 = c.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 0.3
+        check(torch.equal(g.argmax(-1)[clear], c.argmax(-1)[clear]),
+              f"card and CPU pick different clear greedy tokens ({name})")
+        out[name] = {"max_abs_diff": float(d.max()), "rms_diff": rms, "abs_max": scale,
+                     "clear_tokens_compared": int(clear.sum())}
+    return out
+
+
+def profile_decode():
+    """Where a served decode step's time goes: the bf16 W8A8 model at full
+    width, 8 slots of 128-token prompts, block-native decode. Host wall time
+    per step (synchronised) over 8 steps, then the same 8 steps under
+    torch.profiler for the device busy time and the kernels that fill it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import tensorizer as tz
+    from repro_torch.launch.serve import quant_predicate
+    from repro_torch.models import init_model, serve as SV
+    from repro_torch.serving.store import PagedKVStore
+    cfg = get_config("tinyllama-1.1b").replace(quantize="serve")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tz.quantize_params(init_model(cfg, gen, device="cuda"),
+                                predicate=quant_predicate)
+    B, P, n = 8, 128, 8
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(6))
+    store = PagedKVStore(cfg, B, P + 32, block_size=16, device="cuda")
+    for b in range(B):
+        store.lease(b, P, 32)
+    _, kv = SV.prefill_with_cache(params, cfg, tokens.cuda())
+    store.write_slots(list(range(B)), kv, [P] * B)
+    toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+
+    def step():
+        nonlocal toks
+        logits, cache = SV.decode_paged(params, cfg, store.decode_cache(), toks)
+        store.swap(cache)
+        toks = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    # device-side events only (the kernels and copies themselves): the
+    # operator events above them carry the same time again
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    busy_ms = sum(dev_us(e) for e in events) / 1e3 / n
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    return {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "top_kernels_ms_per_step": [[e.key[:60], dev_us(e) / 1e3 / n] for e in top]}
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.to("cpu")
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("[chip_smoke] run from the root of a checkout: src/repro_torch "
+              "not found next to chip_smoke.py", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("[chip_smoke] no CUDA card available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+    print(card, flush=True)
+    phase("card", nvidia_smi=card, name=torch.cuda.get_device_name(0),
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda)
+    try:
+        from repro_torch.kernels import _build
+        seconds = _build.build_all()
+        phase("build", seconds=seconds, ptxas={
+            k: [l for l in v.splitlines() if "registers" in l or "spill" in l]
+            for k, v in _build.build_logs.items()})
+        q_check = check_qgemm(dev)
+        p_check = check_paged(dev)
+        phase("kernels_vs_plain", qgemm=q_check, paged_decode_attention=p_check)
+        q_rows = time_qgemm(dev)
+        p_time = time_paged(dev)
+        phase("kernel_times", card=card, qgemm=q_rows, paged_decode_attention=p_time)
+        launches, serve_stats = check_serve()
+        phase("serve", card=card, **serve_stats)
+        phase("reference", **check_reference())
+        phase("decode_profile", card=card, **profile_decode())
+    except SmokeFailure as e:
+        print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    decode = next(r for r in q_rows if (r["M"], r["K"], r["N"]) == (8, 2048, 5632))
+    kernels = [
+        {"name": "qgemm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qgemm.cu",
+         "replaces": "src/repro/kernels/qgemm.py:60",
+         "launches": launches["qgemm"], "max_abs_err": q_check["max_abs_err"],
+         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+         "library_ms": decode["library_ms"]},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:98",
+         "launches": launches["paged_decode_attention"],
+         "max_abs_err": p_check["max_abs_err"],
+         "ms": p_time["ms"], "plain_ms": p_time["plain_ms"],
+         "bound_ms": p_time["bound_ms"], "bound_by": p_time["bound_by"],
+         "library_ms": p_time["library_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

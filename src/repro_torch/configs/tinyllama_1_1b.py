@@ -1,0 +1,12 @@
+"""tinyllama-1.1b — llama2-arch small (arXiv:2401.02385).
+
+22L d_model=2048 32H (GQA kv=4) d_ff=5632 vocab=32000.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="tinyllama-1.1b",
+    family="dense",
+    n_layers=22, d_model=2048, n_heads=32, n_kv=4, d_ff=5632, vocab=32000,
+    act="swiglu", rope_kind="rope",
+)

@@ -1,0 +1,27 @@
+"""Carry a parameter tree from the JAX package into the port.
+
+The input is the JAX param tree with every array already converted to
+numpy (for example ``jax.tree.map(np.asarray, params)``, which keeps each
+``QTensor`` node with numpy ``q``/``scale`` leaves). Nothing here imports
+JAX: a ``QTensor`` is recognised by its ``q`` and ``scale`` attributes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.tensorizer import QTensor
+
+
+def params_from_numpy(tree, device="cpu"):
+    """Nested dicts of numpy arrays (and q/scale pairs) -> the port's params:
+    the same tree with torch tensors and port ``QTensor``s on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return QTensor(params_from_numpy(tree.q, device),
+                       params_from_numpy(tree.scale, device))
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(tree)).to(device)
+    raise TypeError(f"unsupported param leaf {type(tree).__name__}")
