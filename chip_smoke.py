@@ -6,21 +6,34 @@
 Run from the root of a checkout. Phases, one JSON line each:
 
   1. card     — name and power limit (nvidia-smi), device count
-  2. build    — nvcc builds of every kernel under src/repro_torch/kernels/csrc
+  2. build    — nvcc builds of every kernel under src/repro_torch/kernels/csrc,
+                with ptxas' registers and spills
   3. kernels  — each kernel against its plain PyTorch version on the card at
-                the main path's shapes (qgemm: int32-exact and the bf16 pdot
+                its paths' shapes (qgemm: int32-exact and the bf16 pdot
                 epilogue bitwise; paged attention: partial leases and
-                poisoned cells, 1e-5), then timed beside its plain version,
-                a PyTorch library yardstick and its bound
-  4. serve    — the main path at full width: tinyllama-1.1b W8A8, fused
+                poisoned cells, 1e-5; tile-scales GEMM bitwise; stencil
+                bitwise, and on int8 codes bitwise against an int64 sum),
+                then timed beside its plain version, a PyTorch library
+                yardstick and its bound
+  4. serve    — the serving path at full width: tinyllama-1.1b W8A8, fused
                 prefill-with-cache admission, block-native paged decode
-                through both kernels (repro_torch.launch.serve), with every
-                kernel's launch count read around the run; a second run of
-                the same traffic must give the same tokens
+                through qgemm and paged attention (repro_torch.launch.serve),
+                with every kernel's launch count read around the run; a
+                second run of the same traffic must give the same tokens
   5. reference — the full-width model on the card against the same model
                 on the CPU through the plain versions (f32 compute dtype:
                 prefill and three decode steps)
   6. decode_profile — host time of a served decode step beside the device
+                time torch.profiler sees in it, and its top kernels
+  7. gptpu    — the GPTPU library path: the card's instruction table and
+                the tpuGemm lowering it picks, tpuGemm at 4096^3 in both
+                lowerings against an fp64 product, the seven applications
+                at n = 1024 (quantized) under the paper's Table-4 limits and
+                hotspot3d's fp path, with each kernel's launches read around
+                each call and checked where the path fixes them
+  8. gptpu_reference — the applications on the card against the same
+                applications on the CPU through the plain versions
+  9. gptpu_profile — each application's host wall time beside the device
                 time torch.profiler sees in it, and its top kernels
 
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -29,6 +42,7 @@ line. Any failed check exits nonzero before the last line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -255,6 +269,150 @@ def time_paged(dev):
             "bound_by": by}
 
 
+# ---------------------------------------------------- tile-scales GEMM
+
+TILE = 128
+
+
+def tile_case(dev, M, K, N, gen):
+    import torch
+    a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    sa = torch.rand((M // TILE, K // TILE), generator=gen, device=dev) * 1e-2 + 1e-3
+    sb = torch.rand((K // TILE, N // TILE), generator=gen, device=dev) * 1e-2 + 1e-3
+    return a, b, sa, sb
+
+
+def check_tile_scales(dev):
+    """Bitwise against the plain k loop, whose int32 partials are exact
+    float64 products and whose two roundings per step are the kernel's."""
+    import torch
+    from repro_torch.kernels.qgemm import qgemm_tile_scales, qgemm_tile_scales_plain
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(128, 256, 128), (1024, 1024, 1024), (4096, 4096, 4096)]
+    max_err = 0.0
+    for M, K, N in shapes:
+        args = tile_case(dev, M, K, N, gen)
+        out, ref = qgemm_tile_scales(*args), qgemm_tile_scales_plain(*args)
+        max_err = max(max_err, float((out - ref).abs().max()))
+        check(torch.equal(out, ref), f"qgemm_tile_scales differs from plain at {M}x{K}x{N}")
+    torch.cuda.synchronize()
+    return {"shapes": shapes, "bitwise": True, "max_abs_err": max_err}
+
+
+def tile_bound(M, K, N):
+    """int8 A and B and the f32 tile scales read once, f32 out written once."""
+    moved = M * K + K * N + 4 * (M * K + K * N) // TILE ** 2 + 4 * M * N
+    return bound(moved, 2 * M * K * N, INT8_OPS_PER_S)
+
+
+def time_tile_scales(dev):
+    """At 1024^3 and 4096^3, operands cold. Library yardstick: torch._int_mm
+    on the same int8 operands, which computes the int32 product without the
+    tile scales and their f32 accumulation, so it is a lower yardstick."""
+    import itertools
+    import torch
+    from repro_torch.kernels.qgemm import qgemm_tile_scales, qgemm_tile_scales_plain
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for n in (1024, 4096):
+        cases = itertools.cycle(cold_copies(lambda: tile_case(dev, n, n, n, gen), 2 * n * n))
+        ms = time_ms(lambda: qgemm_tile_scales(*next(cases)), 20)
+        plain = time_ms(lambda: qgemm_tile_scales_plain(*next(cases)), 3)
+        lib = time_ms(lambda: torch._int_mm(*next(cases)[:2]), 20)
+        bound_ms, by = tile_bound(n, n, n)
+        rows.append({"M": n, "K": n, "N": n, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound_ms, "bound_by": by})
+    return rows
+
+
+# ------------------------------------------------------------- stencil
+
+def check_stencil(dev):
+    """Bitwise against the plain version (the same nine multiply-adds from
+    zero, in the same order, each rounded); on int8 codes as f32, bitwise
+    against the int64 sum computed on the card (every partial sum < 2^24)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.stencil3x3 import stencil3x3, stencil3x3_plain
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes = [(64, 128), (100, 300), (257, 129), (4096, 4096)]
+    max_abs = max_rel = 0.0
+    for H, W in shapes:
+        x = torch.randn((H, W), generator=gen, device=dev)
+        w = torch.randn((3, 3), generator=gen, device=dev)
+        out, ref = stencil3x3(x, w), stencil3x3_plain(x, w)
+        err = float((out - ref).abs().max())
+        max_abs, max_rel = max(max_abs, err), max(max_rel, err / float(ref.abs().max()))
+        check(torch.equal(out, ref), f"stencil3x3 differs from plain at {H}x{W}")
+    xq = torch.randint(-127, 128, (1024, 1024), generator=gen, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (3, 3), generator=gen, device=dev, dtype=torch.int8)
+    xq[0, 0] = wq[1, 1] = 127
+    xp = F.pad(xq.long(), (1, 1, 1, 1))
+    exact = sum(wq[p, q].long() * xp[p:p + 1024, q:q + 1024] for p in range(3) for q in range(3))
+    codes = stencil3x3(xq.float(), wq.float())
+    check(torch.equal(codes, exact.float()), "stencil3x3 on int8 codes is not exact")
+    torch.cuda.synchronize()
+    return {"shapes": shapes, "bitwise": True, "max_abs_err": max_abs,
+            "max_rel_err": max_rel, "codes_1024x1024_exact": True}
+
+
+def stencil_bound(H, W):
+    """The field read once and written once (f32), 9 multiplies and 9 adds
+    per cell on the f32 units."""
+    return bound(8 * H * W + 36, 18 * H * W, F32_OPS_PER_S)
+
+
+def time_stencil(dev):
+    """At 1024^2 and 4096^2, the field cold. Library yardstick: F.conv2d on
+    the (1, 1, H, W) field with TF32 off."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.stencil3x3 import stencil3x3, stencil3x3_plain
+    gen = torch.Generator(device=dev).manual_seed(10)
+    w = torch.randn((3, 3), generator=gen, device=dev)
+    w4 = w[None, None]
+    cudnn = torch.backends.cudnn
+    rows = []
+    for n in (1024, 4096):
+        xs = itertools.cycle(cold_copies(lambda: torch.randn((n, n), generator=gen, device=dev),
+                                         4 * n * n))
+        ms = time_ms(lambda: stencil3x3(next(xs), w), 50)
+        plain = time_ms(lambda: stencil3x3_plain(next(xs), w), 10)
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            lib = time_ms(lambda: F.conv2d(next(xs)[None, None], w4, padding=1), 50)
+        bound_ms, by = stencil_bound(n, n)
+        rows.append({"H": n, "W": n, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound_ms, "bound_by": by})
+    return rows
+
+
+def time_qgemm_gptpu(dev):
+    """qgemm at the GPTPU path's shapes, f32 out with unit or per-channel
+    scales: pagerank's mat-vec (M = 1, n = 1024: the adjacency operand cold)
+    and the quantized conv2D lowering of tpuGemm at 4096 (patches 64 x 64,
+    so K = 4096)."""
+    import itertools
+    import torch
+    from repro_torch.kernels.qgemm import qgemm, qgemm_plain
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for M, K, N in ((1, 1024, 1024), (4096, 4096, 4096)):
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+        bs = itertools.cycle(cold_copies(lambda: torch.randint(
+            -127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8), K * N))
+        sb = torch.rand(N, generator=gen, device=dev) * 1e-2
+        ms = time_ms(lambda: qgemm(a, next(bs), sb), 50)
+        plain = time_ms(lambda: qgemm_plain(a, next(bs), sb), 10)
+        lib = time_ms(lambda: torch._int_mm(a, next(bs)), 50) if M > 16 else None
+        bound_ms, by = qgemm_bound(M, K, N, out_bytes=4)
+        rows.append({"M": M, "K": K, "N": N, "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": bound_ms, "bound_by": by})
+    return rows
+
+
 # -------------------------------------------------------------- main path
 
 def serve_once():
@@ -425,8 +583,17 @@ def profile_decode():
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    # device-side events only (the kernels and copies themselves): the
-    # operator events above them carry the same time again
+    busy_ms, top = device_time(prof, n, 8)
+    return {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "top_kernels_ms_per_step": top}
+
+
+def device_time(prof, n, k):
+    """Device busy ms per run (of ``n`` profiled runs) and the ``k`` kernels
+    that fill most of it, from device-side events only (the kernels and
+    copies themselves: the operator events above them carry the same time
+    again)."""
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
@@ -434,10 +601,186 @@ def profile_decode():
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
     busy_ms = sum(dev_us(e) for e in events) / 1e3 / n
-    top = sorted(events, key=dev_us, reverse=True)[:8]
-    return {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
-            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-            "top_kernels_ms_per_step": [[e.key[:60], dev_us(e) / 1e3 / n] for e in top]}
+    top = sorted(events, key=dev_us, reverse=True)[:k]
+    return busy_ms, [[e.key[:60], dev_us(e) / 1e3 / n] for e in top]
+
+
+# ------------------------------------------------------ the GPTPU path
+
+APP_N = 1024   # the GEMM size of the paper's Fig. 7 (apps/gemm_app.py)
+GEMM_N = 4096  # tpuGemm's size in both lowerings
+# tests/test_apps_accuracy.py's limits (paper Table 4 with slack), percent
+APP_MAPE_LIMITS = {"gemm": 1.0, "pagerank": 1.0, "hotspot3d": 1.0, "lud": 0.5,
+                   "gaussian": 0.01, "backprop": 0.5, "blackscholes": 2.0}
+APP_RMSE_LIMIT = 1.0
+APP_FP_MAPE_LIMIT = 0.05       # tests/test_apps_accuracy.py::test_fp_paths_are_exact
+
+
+def gptpu_counters():
+    from repro_torch.kernels.qgemm import qgemm, qgemm_tile_scales
+    from repro_torch.kernels.stencil3x3 import stencil3x3
+    return {"qgemm": qgemm, "qgemm_tile_scales": qgemm_tile_scales, "stencil3x3": stencil3x3}
+
+
+def read_launches(fn):
+    """Run ``fn()`` and return (its result, each kernel's launches during it)."""
+    counters = gptpu_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    out = fn()
+    return out, {k: c.launches - before[k] for k, c in counters.items()}
+
+
+def expected_app_launches(name, lowering, n):
+    """What each application's code fixes at size ``n``: tpuGemm calls go to
+    the tile-scales kernel (fully_connected) or qgemm (conv2d)."""
+    from repro_torch.apps import hotspot3d, lud, pagerank
+
+    def lud_gemms(m):                    # one Schur update per split above BLOCK
+        return 0 if m <= lud.BLOCK else 1 + lud_gemms(m // 2) + lud_gemms(m - m // 2)
+
+    def gemms(k):
+        fc = lowering == "fully_connected"
+        return {"qgemm": 0 if fc else k, "qgemm_tile_scales": k if fc else 0,
+                "stencil3x3": 0}
+    if name == "gemm":
+        return gemms(1)
+    if name == "lud":
+        return gemms(lud_gemms(n))
+    if name == "backprop":               # 3 FullyConnected (qgemm) + 2 tpuGemm
+        return dict(gemms(2), qgemm=3 + gemms(2)["qgemm"])
+    if name == "pagerank":               # one FullyConnected per iteration
+        return {"qgemm": pagerank.ITERS, "qgemm_tile_scales": 0, "stencil3x3": 0}
+    if name == "hotspot3d":              # every layer every iteration + the mass
+        return {"qgemm": 0, "qgemm_tile_scales": 0,
+                "stencil3x3": hotspot3d.ITERS * hotspot3d.NZ + 1}
+    return {"qgemm": 0, "qgemm_tile_scales": 0, "stencil3x3": 0}   # gaussian, blackscholes
+
+
+@contextlib.contextmanager
+def pinned_lowering(lowering):
+    """tpuGemm(lowering=None) takes ``lowering`` on every device meanwhile."""
+    from repro_torch.core import instr_select
+    measured = instr_select.best_gemm_lowering
+    instr_select.best_gemm_lowering = lambda device=None: lowering
+    try:
+        yield
+    finally:
+        instr_select.best_gemm_lowering = measured
+
+
+def check_gptpu(dev):
+    """The GPTPU path through its entry points: the card's instruction table
+    (measured now), tpuGemm at 4096^3 in both lowerings, the seven
+    applications at n = APP_N, the three that call tpuGemm again in the
+    lowering the table did not pick, and hotspot3d's fp path. Every kernel's
+    count is set to 0 after the table is measured and read at the end."""
+    import numpy as np
+    import torch
+    from repro_torch.apps import ALL, run_app
+    from repro_torch.core import instr_select
+    from repro_torch.core.gemm import tpu_gemm
+    table = instr_select.get_table(dev, refresh=True)
+    lowering = instr_select.best_gemm_lowering(dev)
+    for c in gptpu_counters().values():
+        c.launches = 0
+    out = {"instr_table": table, "lowering": lowering, "tpu_gemm": {}, "apps": {}}
+
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.uniform(0, 16, (GEMM_N, GEMM_N)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.uniform(0, 16, (GEMM_N, GEMM_N)).astype(np.float32)).to(dev)
+    exact = a.double() @ b.double()
+    for low, kernel in (("fully_connected", "qgemm_tile_scales"), ("conv2d", "qgemm")):
+        t0 = time.perf_counter()
+        c, launches = read_launches(lambda: tpu_gemm(a, b, lowering=low))
+        torch.cuda.synchronize()
+        rel = float((c.double() - exact).abs().max() / exact.abs().max())
+        check(bool(torch.isfinite(c).all()) and rel < 0.02,
+              f"tpu_gemm {low} at {GEMM_N}: relative max error {rel}")
+        check(launches[kernel] == 1 and sum(launches.values()) == 1,
+              f"tpu_gemm {low} launched {launches}")
+        out["tpu_gemm"][low] = {"rel_max_err": rel, "launches": launches,
+                                "wall_s": time.perf_counter() - t0}
+    del a, b, exact
+
+    def run_checked(label, name, low, quantized=True):
+        r, launches = read_launches(lambda: run_app(name, n=APP_N, quantized=quantized,
+                                                    device=dev))
+        mape_limit = APP_MAPE_LIMITS[name] if quantized else APP_FP_MAPE_LIMIT
+        check(r.mape_pct <= mape_limit and r.rmse_pct <= APP_RMSE_LIMIT,
+              f"{label} at n={APP_N}: MAPE {r.mape_pct}%, RMSE {r.rmse_pct}%")
+        expect = expected_app_launches(name, low, APP_N)
+        check(launches == expect, f"{label} launched {launches}, expected {expect}")
+        out["apps"][label] = {"mape_pct": r.mape_pct, "rmse_pct": r.rmse_pct,
+                              "wall_s": r.t_gptpu_s, "launches": launches}
+
+    for name in sorted(ALL):
+        run_checked(name, name, lowering)
+    other = "conv2d" if lowering == "fully_connected" else "fully_connected"
+    with pinned_lowering(other):
+        for name in ("backprop", "gemm", "lud"):
+            run_checked(f"{name}_{other}", name, other)
+    run_checked("hotspot3d_fp", "hotspot3d", lowering, quantized=False)
+    path = {k: c.launches for k, c in gptpu_counters().items()}
+    check(all(path.values()), f"a kernel of the GPTPU path never launched: {path}")
+    out["launches"] = path
+    return out
+
+
+def profile_gptpu(dev, lowering):
+    """Where each application's time goes on the card (quantized, n = APP_N,
+    tpuGemm's lowering the card's): host wall time of a synchronised run
+    after a warm one, beside the device time torch.profiler sees in a third,
+    and its top kernels. Wall time includes making the inputs with numpy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.apps import ALL
+    out = {}
+    with pinned_lowering(lowering):
+        for name in sorted(ALL):
+            def run():
+                ALL[name](APP_N, quantized=True, device=dev)
+                torch.cuda.synchronize()
+            run()
+            t0 = time.perf_counter()
+            run()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+            busy_ms, top = device_time(prof, 1, 3)
+            out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                         "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": top}
+    return out
+
+
+def check_gptpu_reference(dev, lowering):
+    """Each application on the card (kernels) against the same application
+    on the CPU (plain versions), tpuGemm's lowering pinned to the same
+    choice on both: the card's, and for the three apps that call tpuGemm
+    also the other one. Bitwise where the arithmetic is integer or the same
+    IEEE operations in the same order: gaussian (its integer path), gemm and
+    lud (the tile codes and scales, the exact int32 partials, the kernels'
+    epilogues); hotspot3d's fp path within 1e-4 of the range; the other
+    quantized apps within 1e-2 of the range, since a last-bit difference
+    upstream of an int8 quantization (a mean, an exp, a sum taken in
+    another order) moves a code by one step."""
+    import numpy as np
+    from repro_torch.apps import ALL
+    other = "conv2d" if lowering == "fully_connected" else "fully_connected"
+    cases = ([(n, True, lowering) for n in sorted(ALL)] + [("hotspot3d", False, lowering)]
+             + [(n, True, other) for n in ("backprop", "gemm", "lud")])
+    out = {}
+    for name, quantized, low in cases:
+        with pinned_lowering(low):
+            g, ref_fn = ALL[name](APP_N, quantized=quantized, device=dev)
+            c, _ = ALL[name](APP_N, quantized=quantized, device="cpu")
+        g, c, ref = (np.asarray(v, np.float64) for v in (g, c, ref_fn()))
+        rel = float(np.abs(g - c).max()) / float(ref.max() - ref.min())
+        label = (name if quantized else f"{name}_fp") + ("" if low == lowering else f"_{low}")
+        limit = 0.0 if name in ("gaussian", "gemm", "lud") else (1e-2 if quantized else 1e-4)
+        check(bool(np.isfinite(g).all()) and rel <= limit,
+              f"{label}: card vs CPU differ by {rel} of the range (limit {limit})")
+        out[label] = {"max_diff_over_range": rel, "bitwise": bool(np.array_equal(g, c))}
+    return out
 
 
 def _to_cpu(tree):
@@ -473,23 +816,40 @@ def main() -> int:
             for k, v in _build.build_logs.items()})
         q_check = check_qgemm(dev)
         p_check = check_paged(dev)
-        phase("kernels_vs_plain", qgemm=q_check, paged_decode_attention=p_check)
+        t_check = check_tile_scales(dev)
+        s_check = check_stencil(dev)
+        phase("kernels_vs_plain", qgemm=q_check, paged_decode_attention=p_check,
+              qgemm_tile_scales=t_check, stencil3x3=s_check)
         q_rows = time_qgemm(dev)
         p_time = time_paged(dev)
-        phase("kernel_times", card=card, qgemm=q_rows, paged_decode_attention=p_time)
+        t_rows = time_tile_scales(dev)
+        s_rows = time_stencil(dev)
+        g_rows = time_qgemm_gptpu(dev)
+        phase("kernel_times", card=card, qgemm=q_rows, paged_decode_attention=p_time,
+              qgemm_tile_scales=t_rows, stencil3x3=s_rows, qgemm_gptpu=g_rows)
         launches, serve_stats = check_serve()
         phase("serve", card=card, **serve_stats)
         phase("reference", **check_reference())
         phase("decode_profile", card=card, **profile_decode())
+        gptpu = check_gptpu(dev)
+        phase("gptpu", card=card, **gptpu)
+        phase("gptpu_reference", lowering=gptpu["lowering"],
+              **check_gptpu_reference(dev, gptpu["lowering"]))
+        phase("gptpu_profile", card=card, lowering=gptpu["lowering"],
+              **profile_gptpu(dev, gptpu["lowering"]))
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
     decode = next(r for r in q_rows if (r["M"], r["K"], r["N"]) == (8, 2048, 5632))
+    by_path = {"serve": launches, "gptpu": gptpu["launches"]}
+    tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     kernels = [
         {"name": "qgemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qgemm.cu",
          "replaces": "src/repro/kernels/qgemm.py:60",
-         "launches": launches["qgemm"], "max_abs_err": q_check["max_abs_err"],
+         "launches": launches["qgemm"] + gptpu["launches"]["qgemm"],
+         "launches_by_path": {p: c["qgemm"] for p, c in by_path.items()},
+         "max_abs_err": q_check["max_abs_err"],
          "ms": decode["ms"], "plain_ms": decode["plain_ms"],
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
          "library_ms": decode["library_ms"]},
@@ -501,6 +861,22 @@ def main() -> int:
          "ms": p_time["ms"], "plain_ms": p_time["plain_ms"],
          "bound_ms": p_time["bound_ms"], "bound_by": p_time["bound_by"],
          "library_ms": p_time["library_ms"]},
+        {"name": "qgemm_tile_scales", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qgemm_tile_scales.cu",
+         "replaces": "src/repro/kernels/qgemm.py:117",
+         "launches": gptpu["launches"]["qgemm_tile_scales"],
+         "max_abs_err": t_check["max_abs_err"],
+         "ms": tile["ms"], "plain_ms": tile["plain_ms"],
+         "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
+         "library_ms": tile["library_ms"]},
+        {"name": "stencil3x3", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/stencil3x3.cu",
+         "replaces": "src/repro/kernels/stencil3x3.py:42",
+         "launches": gptpu["launches"]["stencil3x3"],
+         "max_abs_err": s_check["max_abs_err"],
+         "ms": sten["ms"], "plain_ms": sten["plain_ms"],
+         "bound_ms": sten["bound_ms"], "bound_by": sten["bound_by"],
+         "library_ms": sten["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of the serving system in ``repro``.
+"""PyTorch/CUDA port of ``repro``: its serving system, and the GPTPU library
+(Tensorizer, instruction set, tpuGemm) with the paper's applications.
 
-The package mirrors ``repro``'s module names (configs, core, kernels, models,
-serving, launch) so each port module sits where its counterpart does. It
+The package mirrors ``repro``'s module names (apps, configs, core, kernels,
+models, serving, launch) so each port module sits where its counterpart does. It
 imports ``torch`` and ``numpy`` only. Entry points run on the CUDA card unless
 the caller asks for the CPU (``device="cpu"``), which is how the tests run.
 """

@@ -44,6 +44,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # B, H, KV, hd, bs, MB, n_blocks, pool_bf16, sm_scale, stream
         "paged_attention_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
     },
+    "qgemm_tile_scales": {
+        # a, b, sa, sb, out, M, N, K, stream
+        "qgemm_tile_scales_launch": [P, P, P, P, P, I, I, I, P],
+    },
+    "stencil3x3": {
+        # x, w, out, H, W, stream
+        "stencil3x3_launch": [P, P, P, I, I, P],
+    },
 }
 
 _lock = threading.Lock()

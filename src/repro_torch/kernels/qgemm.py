@@ -1,6 +1,7 @@
-"""W8A8 int8 GEMM: the CUDA kernel ``csrc/qgemm.cu`` and its plain version.
+"""Int8 GEMMs: the CUDA kernels ``csrc/qgemm.cu`` and
+``csrc/qgemm_tile_scales.cu``, each beside its plain version.
 
-Replaces ``repro/kernels/qgemm.py::qgemm`` and, in the port, the XLA int8
+``qgemm`` replaces ``repro/kernels/qgemm.py::qgemm`` and, in the port, the XLA int8
 ``dot_general`` of ``models/layers.py::pdot``, which ``torch.matmul`` cannot
 run on CUDA. Contract::
 
@@ -12,6 +13,17 @@ None, which makes ``sa=None`` with f32 output exactly the Pallas kernel's
 function. ``a_q`` is (M, K) int8, ``b_q`` (K, N) int8 in its public layout,
 ``sb`` (N,) f32, ``sa`` (M,) f32. Ragged M, N and K are masked in the kernel;
 the Pallas kernel asserted block alignment instead.
+
+``qgemm_tile_scales`` replaces ``repro/kernels/qgemm.py::qgemm_tile_scales``,
+the blocked product of tpuGemm's FullyConnected lowering::
+
+    qgemm_tile_scales(a_q, b_q, sa, sb)[i-tile, j-tile]
+      = sum over k tiles, in k order, of float(P_ikj) * (sa[i, k] * sb[k, j])
+
+with ``P_ikj`` the exact int32 product of one 128-deep tile pair, one scale
+per 128x128 tile of each operand (``sa`` (M/128, K/128), ``sb`` (K/128,
+N/128) f32), M, N and K multiples of 128 as the Pallas wrapper asserted.
+Each step rounds the scale product, the multiply and the add, in that order.
 """
 
 from __future__ import annotations
@@ -23,19 +35,24 @@ import torch
 from repro_torch.kernels import _build
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+TILE = 128
+
+
+def _i32_product(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 operands: an int32 matmul on the CPU (an
+    int8 one would wrap); on CUDA, which has no integer matmul, a float64 one
+    cast back, which holds every partial sum exactly (|sum| <= K * 127^2 <
+    2^53)."""
+    if a_q.device.type == "cpu":
+        return a_q.to(torch.int32) @ b_q.to(torch.int32)
+    return (a_q.to(torch.float64) @ b_q.to(torch.float64)).to(torch.int32)
 
 
 def qgemm_plain(a_q: torch.Tensor, b_q: torch.Tensor, sb: torch.Tensor,
                 sa: Optional[torch.Tensor] = None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain PyTorch version. The operands are widened before the product:
-    a CPU int8 matmul returns int8 and wraps. CUDA has no integer matmul, so
-    there the product runs in float64, which holds every partial sum exactly
-    (|sum| <= K * 127^2 < 2^53)."""
-    if a_q.device.type == "cpu":
-        acc = a_q.to(torch.int32) @ b_q.to(torch.int32)
-    else:
-        acc = (a_q.to(torch.float64) @ b_q.to(torch.float64)).to(torch.int32)
+    """Plain PyTorch version: the exact int32 product, then the epilogue."""
+    acc = _i32_product(a_q, b_q)
     scale = sb if sa is None else sa[:, None] * sb[None, :]
     return (acc.to(torch.float32) * scale).to(out_dtype)
 
@@ -92,3 +109,84 @@ def qgemm(a_q: torch.Tensor, b_q: torch.Tensor, sb: torch.Tensor,
 
 
 qgemm.launches = 0
+
+
+def qgemm_tile_scales_plain(a_q: torch.Tensor, b_q: torch.Tensor,
+                            sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: an explicit loop over k tiles, in k order,
+    of ``acc = acc + float(P_k) * (sa_k * sb_k)`` with the tile scales
+    broadcast over their 128x128 blocks. A ``.sum`` over k would reorder
+    the additions."""
+    M, K = a_q.shape
+    N = b_q.shape[1]
+    acc = torch.zeros((M, N), dtype=torch.float32, device=a_q.device)
+    for k in range(K // TILE):
+        ks = slice(k * TILE, (k + 1) * TILE)
+        part = _i32_product(a_q[:, ks], b_q[ks, :]).to(torch.float32)
+        scale = sa[:, k, None] * sb[None, k, :]                    # (Mb, Nb)
+        scale = scale.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+        acc = acc + part * scale
+    return acc
+
+
+def _check_tile_scales(a_q, b_q, sa, sb) -> None:
+    for name, t, dt in (("a_q", a_q, torch.int8), ("b_q", b_q, torch.int8),
+                        ("sa", sa, torch.float32), ("sb", sb, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"qgemm_tile_scales: {name} must be {dt}, got {t.dtype}")
+    if any(t.ndim != 2 for t in (a_q, b_q, sa, sb)):
+        raise ValueError("qgemm_tile_scales: expected 2-D a_q, b_q, sa, sb")
+    M, K = a_q.shape
+    K2, N = b_q.shape
+    if K != K2 or min(M, N, K) < 1 or M % TILE or N % TILE or K % TILE:
+        raise ValueError(f"qgemm_tile_scales: {tuple(a_q.shape)} @ {tuple(b_q.shape)} "
+                         f"must agree in K and be multiples of {TILE}")
+    if (tuple(sa.shape) != (M // TILE, K // TILE)
+            or tuple(sb.shape) != (K // TILE, N // TILE)):
+        raise ValueError(f"qgemm_tile_scales: tile scales sa {tuple(sa.shape)}, sb "
+                         f"{tuple(sb.shape)} do not match the tile grid")
+    tensors = (a_q, b_q, sa, sb)
+    if any(t.device != a_q.device for t in tensors):
+        raise ValueError("qgemm_tile_scales: all operands must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qgemm_tile_scales: operands must be contiguous")
+
+
+def qgemm_tile_scales(a_q: torch.Tensor, b_q: torch.Tensor, sa: torch.Tensor,
+                      sb: torch.Tensor) -> torch.Tensor:
+    """See module docstring. CPU tensors take the plain version; CUDA tensors
+    launch the kernel on the current stream."""
+    _check_tile_scales(a_q, b_q, sa, sb)
+    if a_q.device.type == "cpu":
+        return qgemm_tile_scales_plain(a_q, b_q, sa, sb)
+    if a_q.device.type != "cuda":
+        raise ValueError(f"qgemm_tile_scales: unsupported device {a_q.device}")
+    if a_q.data_ptr() % 4 or b_q.data_ptr() % 4:
+        raise ValueError("qgemm_tile_scales: a_q and b_q must be 4-byte aligned")
+    M, K = a_q.shape
+    N = b_q.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
+    lib = _build.library("qgemm_tile_scales")
+    err = lib.qgemm_tile_scales_launch(
+        a_q.data_ptr(), b_q.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
+        M, N, K, torch.cuda.current_stream(a_q.device).cuda_stream)
+    _build.check(err, "qgemm_tile_scales")
+    qgemm_tile_scales.launches += 1
+    return out
+
+
+qgemm_tile_scales.launches = 0
+
+
+def qgemm_tiles(a_q: torch.Tensor, sa: torch.Tensor, b_q: torch.Tensor,
+                sb: torch.Tensor) -> torch.Tensor:
+    """Tile-grid entry of ``core.gemm``: ``a_q`` (Mb, Kb, t, t) and ``b_q``
+    (Kb, Nb, t, t) int8 tile grids with per-tile scales broadcastable to
+    (Mb, Kb) and (Kb, Nb); returns the (Mb, Nb, t, t) f32 output tiles."""
+    Mb, Kb, t, _ = a_q.shape
+    Nb = b_q.shape[1]
+    a2 = a_q.transpose(1, 2).reshape(Mb * t, Kb * t).contiguous()
+    b2 = b_q.transpose(1, 2).reshape(Kb * t, Nb * t).contiguous()
+    out = qgemm_tile_scales(a2, b2, sa.reshape(Mb, Kb).contiguous(),
+                            sb.reshape(Kb, Nb).contiguous())
+    return out.reshape(Mb, t, Nb, t).transpose(1, 2)
