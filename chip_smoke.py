@@ -12,32 +12,40 @@ Run from the root of a checkout. Phases, one JSON line each:
                 its paths' shapes (qgemm: int32-exact and the bf16 pdot
                 epilogue bitwise; paged attention: partial leases and
                 poisoned cells, 1e-5; tile-scales GEMM bitwise; stencil
-                bitwise, and on int8 codes bitwise against an int64 sum),
-                then timed beside its plain version, a PyTorch library
-                yardstick and its bound
-  4. serve    — the serving path at full width: tinyllama-1.1b W8A8, fused
+                bitwise, and on int8 codes bitwise against an int64 sum;
+                qgemv within rtol 2e-4 / atol 1e-4, odd B included, two
+                launches bitwise equal, bad operands refused), then timed
+                beside its plain version, a PyTorch library yardstick and
+                its bound
+  4. ops      — the public kernel entries (repro_torch.kernels.ops: qgemm_f32,
+                qgemm_i32, qgemm_tiles, stencil, qgemv) on the card against
+                the same entries on CPU copies, each launching its kernel
+                exactly once
+  5. serve    — the serving path at full width: tinyllama-1.1b W8A8, fused
                 prefill-with-cache admission, block-native paged decode
                 through qgemm and paged attention (repro_torch.launch.serve),
                 with every kernel's launch count read around the run; a
                 second run of the same traffic must give the same tokens
-  5. reference — the full-width model on the card against the same model
+  6. reference — the full-width model on the card against the same model
                 on the CPU through the plain versions (f32 compute dtype:
                 prefill and three decode steps)
-  6. decode_profile — host time of a served decode step beside the device
+  7. decode_profile — host time of a served decode step beside the device
                 time torch.profiler sees in it, and its top kernels
-  7. gptpu    — the GPTPU library path: the card's instruction table and
+  8. gptpu    — the GPTPU library path: the card's instruction table and
                 the tpuGemm lowering it picks, tpuGemm at 4096^3 in both
                 lowerings against an fp64 product, the seven applications
                 at n = 1024 (quantized) under the paper's Table-4 limits and
                 hotspot3d's fp path, with each kernel's launches read around
                 each call and checked where the path fixes them
-  8. gptpu_reference — the applications on the card against the same
+  9. gptpu_reference — the applications on the card against the same
                 applications on the CPU through the plain versions
-  9. gptpu_profile — each application's host wall time beside the device
+ 10. gptpu_profile — each application's host wall time beside the device
                 time torch.profiler sees in it, and its top kernels
 
-then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Any failed check exits nonzero before the last line.
+then the ``{"kernels": [...]}`` line (all five kernels, each with its
+launches on the three paths: serve, gptpu and ops) and, last, the
+``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
+line.
 """
 
 from __future__ import annotations
@@ -84,6 +92,32 @@ def time_ms(fn, iters):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed once: the launches run back to back on the card with
+    no host work between them. ``time_ms`` of the same calls issued eagerly
+    from Python also counts the host's time per call where that is longer."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -413,19 +447,138 @@ def time_qgemm_gptpu(dev):
     return rows
 
 
+# ---------------------------------------------------------------- qgemv
+
+QGEMV_PAIRS = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000))
+
+
+def qgemv_bound(B, K, N):
+    """The int8 weights, x and the scales read once, the f32 output written
+    once; 2*B*K*N operations on the f32 units."""
+    return bound(K * N + 4 * B * K + 4 * N + 4 * B * N, 2 * B * K * N, F32_OPS_PER_S)
+
+
+def check_qgemv(dev):
+    """Against the plain version within rtol 2e-4 / atol 1e-4 (the JAX
+    contract, tests/test_kernels.py), with TF32 off around the plain
+    version's matmul (PyTorch's default; the port sets it nowhere); two
+    launches on the same inputs bitwise equal; the error against an fp64
+    product beside it (max |diff| over max |product|); bad operands raise."""
+    import torch
+    from repro_torch.kernels.qdot_serve import qgemv, qgemv_plain
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shapes = [(1, 256, 256), (8, 384, 512), (3, 640, 768), (8, 2048, 256), (8, 2048, 32000)]
+    rows = []
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
+    for B, K, N in shapes:
+        x = torch.randn((B, K), generator=gen, device=dev)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        w[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)    # both ends of int8
+        s = torch.rand(N, generator=gen, device=dev) * 9e-3 + 1e-3
+        out = qgemv(x, w, s)
+        check(torch.equal(out, qgemv(x, w, s)), f"qgemv: two launches differ at {B}x{K}x{N}")
+        ref = qgemv_plain(x, w, s)
+        err = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, rtol=2e-4, atol=1e-4),
+              f"qgemv differs from plain at {B}x{K}x{N}: max abs {err}")
+        exact = (x.double() @ w.double()) * s.double()
+        rows.append({"B": B, "K": K, "N": N, "max_abs_err": err,
+                     "fp64_max_err_over_abs_max": float((out.double() - exact).abs().max()
+                                                        / exact.abs().max()),
+                     "plain_fp64_max_err_over_abs_max": float(
+                         (ref.double() - exact).abs().max() / exact.abs().max())})
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
+    x = torch.zeros((2, 256), device=dev)
+    s = torch.ones(256, device=dev)
+    flat = torch.zeros(256 * 256 + 1, dtype=torch.int8, device=dev)
+    bad = {"misaligned w_q": (x, flat[1:].view(256, 256), s),
+           "N % 256 != 0": (x, torch.zeros((256, 384), dtype=torch.int8, device=dev),
+                            torch.ones(384, device=dev)),
+           "f32 w_q": (x, torch.zeros((256, 256), device=dev), s),
+           "scale on the CPU": (x, flat[:-1].view(256, 256), s.cpu())}
+    before = qgemv.launches
+    for what, args in bad.items():
+        try:
+            qgemv(*args)
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure(f"qgemv accepted a bad operand ({what})")
+    check(qgemv.launches == before, "qgemv launched on a bad operand")
+    torch.cuda.synchronize()
+    return {"shapes": rows, "bitwise_repeat": True, "refused": sorted(bad),
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def time_weight_int8pack(x, ws, s):
+    """(ms, None) of torch._weight_int8pack_mm, the same function with the
+    weights as (N, K), on transposed copies of ``ws``, timed as ``graph_ms``;
+    (None, the first line of its error) where the card's PyTorch has no
+    kernel for it."""
+    import itertools
+    import torch
+    wts = [w.t().contiguous() for w in ws]
+    try:
+        torch._weight_int8pack_mm(x, wts[0], s)
+    except RuntimeError as e:
+        return None, (str(e).splitlines() or [type(e).__name__])[0]
+    cyc = itertools.cycle(wts)
+    return graph_ms(lambda: torch._weight_int8pack_mm(x, next(cyc), s), 50), None
+
+
+def time_qgemv(dev, qgemm_rows):
+    """At B = 8 and B = 1 and the (K, N) of every serving projection, the
+    weights cold. ``ms``, ``plain_ms`` and ``library_ms`` are device times
+    (``graph_ms``): issued eagerly from Python the kernel's calls are
+    host-bound (``eager_ms``, ``time_ms``). For information only, each row
+    carries qgemm's W8A8 times at the same (M = 8, K, N), another function
+    (int8 activations, bf16 out): eager from ``time_qgemm``, and its device
+    time here."""
+    import itertools
+    import torch
+    from repro_torch.kernels.qdot_serve import qgemv, qgemv_plain
+    from repro_torch.kernels.qgemm import qgemm
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w8a8 = {(r["K"], r["N"]): r["ms"] for r in qgemm_rows if r["M"] == 8}
+    rows = []
+    for B in (8, 1):
+        for K, N in QGEMV_PAIRS:
+            x = torch.randn((B, K), generator=gen, device=dev)
+            s = torch.rand(N, generator=gen, device=dev) * 1e-2
+            ws = cold_copies(lambda: torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                                                   dtype=torch.int8), K * N)
+            cyc = itertools.cycle(ws)
+            ms = graph_ms(lambda: qgemv(x, next(cyc), s), 50)
+            eager = time_ms(lambda: qgemv(x, next(cyc), s), 50)
+            plain = graph_ms(lambda: qgemv_plain(x, next(cyc), s), 10)
+            lib, lib_error = time_weight_int8pack(x, ws, s)
+            bound_ms, by = qgemv_bound(B, K, N)
+            row = {"B": B, "K": K, "N": N, "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                   "library_ms": lib, "bound_ms": bound_ms, "bound_by": by}
+            if lib_error is not None:
+                row["library_error"] = lib_error
+            if B == 8:
+                a8 = torch.randint(-127, 128, (8, K), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                sa = torch.rand(8, generator=gen, device=dev) * 1e-1
+                row["info_only_qgemm_w8a8_M8_ms"] = w8a8[(K, N)]
+                row["info_only_qgemm_w8a8_M8_graph_ms"] = graph_ms(
+                    lambda: qgemm(a8, next(cyc), s, sa, torch.bfloat16), 50)
+            rows.append(row)
+            del ws, cyc
+    return rows
+
+
 # -------------------------------------------------------------- main path
 
 def serve_once():
-    from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.qgemm import qgemm
     from repro_torch.launch import serve
-    qgemm.launches = 0
-    paged_decode_attention.launches = 0
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     reqs, stats = serve.run(SERVE_ARGS)
     wall = time.perf_counter() - t0
-    return reqs, stats, wall, {"qgemm": qgemm.launches,
-                               "paged_decode_attention": paged_decode_attention.launches}
+    return reqs, stats, wall, {k: c.launches for k, c in counters.items()}
 
 
 def check_serve():
@@ -622,6 +775,14 @@ def gptpu_counters():
     return {"qgemm": qgemm, "qgemm_tile_scales": qgemm_tile_scales, "stencil3x3": stencil3x3}
 
 
+def all_counters():
+    """Every kernel wrapper of the port, by name (its ``launches`` count)."""
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.qdot_serve import qgemv
+    return {**gptpu_counters(), "paged_decode_attention": paged_decode_attention,
+            "qgemv": qgemv}
+
+
 def read_launches(fn):
     """Run ``fn()`` and return (its result, each kernel's launches during it)."""
     counters = gptpu_counters()
@@ -681,7 +842,7 @@ def check_gptpu(dev):
     from repro_torch.core.gemm import tpu_gemm
     table = instr_select.get_table(dev, refresh=True)
     lowering = instr_select.best_gemm_lowering(dev)
-    for c in gptpu_counters().values():
+    for c in all_counters().values():
         c.launches = 0
     out = {"instr_table": table, "lowering": lowering, "tpu_gemm": {}, "apps": {}}
 
@@ -720,8 +881,9 @@ def check_gptpu(dev):
         for name in ("backprop", "gemm", "lud"):
             run_checked(f"{name}_{other}", name, other)
     run_checked("hotspot3d_fp", "hotspot3d", lowering, quantized=False)
-    path = {k: c.launches for k, c in gptpu_counters().items()}
-    check(all(path.values()), f"a kernel of the GPTPU path never launched: {path}")
+    path = {k: c.launches for k, c in all_counters().items()}
+    check(all(path[k] for k in gptpu_counters()),
+          f"a kernel of the GPTPU path never launched: {path}")
     out["launches"] = path
     return out
 
@@ -783,6 +945,68 @@ def check_gptpu_reference(dev, lowering):
     return out
 
 
+# ------------------------------------------------ the public kernel entries
+
+def check_ops(dev):
+    """The port's five public kernel entries (repro_torch.kernels.ops) with
+    CUDA tensors, at one shape each of tests/test_kernels.py, against the
+    same entry on CPU copies of the same tensors (the plain versions):
+    bitwise for the four whose kernels are bitwise equal to their plain
+    versions, qgemv within rtol 2e-4 / atol 1e-4. Every count is set to 0
+    before the phase and read after it; each entry must launch its own
+    kernel exactly once and no other."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(14)
+
+    def i8(*shape):
+        return rng.integers(-127, 128, shape).astype(np.int8)
+
+    def f32(*shape):
+        return rng.uniform(1e-3, 1e-2, shape).astype(np.float32)
+
+    def grid(a, rb, cb):
+        return np.ascontiguousarray(a.reshape(rb, TILE, cb, TILE).swapaxes(1, 2))
+
+    cases = {
+        "qgemm_f32": ("qgemm", (i8(128, 512), i8(512, 128), f32(128))),
+        "qgemm_i32": ("qgemm", (i8(128, 512), i8(512, 128))),
+        "qgemm_tiles": ("qgemm_tile_scales", (grid(i8(256, 512), 2, 4), f32(2, 4),
+                                              grid(i8(512, 256), 4, 2), f32(4, 2))),
+        "stencil": ("stencil3x3", (rng.normal(size=(100, 300)).astype(np.float32),
+                                   rng.normal(size=(3, 3)).astype(np.float32))),
+        "qgemv": ("qgemv", (rng.normal(size=(8, 384)).astype(np.float32), i8(384, 512),
+                            f32(512))),
+    }
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = {}
+    for entry, (kernel, args) in cases.items():
+        fn = getattr(ops, entry)
+        cpu = fn(*[torch.from_numpy(a) for a in args])
+        before = {k: c.launches for k, c in counters.items()}
+        card = fn(*[torch.from_numpy(a).to(dev) for a in args])
+        torch.cuda.synchronize()
+        moved = {k: c.launches - before[k] for k, c in counters.items()}
+        check(moved == {k: int(k == kernel) for k in counters},
+              f"ops.{entry} launched {moved}, expected one {kernel}")
+        card = card.cpu()
+        check(card.shape == cpu.shape and card.dtype == cpu.dtype,
+              f"ops.{entry}: card gave {card.dtype} {tuple(card.shape)}, CPU "
+              f"{cpu.dtype} {tuple(cpu.shape)}")
+        err = float((card - cpu).abs().max())
+        if entry == "qgemv":
+            check(torch.allclose(card, cpu, rtol=2e-4, atol=1e-4),
+                  f"ops.qgemv card vs CPU: max abs {err}")
+        else:
+            check(torch.equal(card, cpu), f"ops.{entry} card vs CPU not bitwise: {err}")
+        out[entry] = {"kernel": kernel, "shape": list(card.shape), "max_abs_err": err,
+                      "bitwise": bool(torch.equal(card, cpu))}
+    return {k: c.launches for k, c in counters.items()}, out
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -811,22 +1035,27 @@ def main() -> int:
     try:
         from repro_torch.kernels import _build
         seconds = _build.build_all()
-        phase("build", seconds=seconds, ptxas={
+        phase("build", seconds=seconds, libraries=sorted(_build.SIGNATURES), ptxas={
             k: [l for l in v.splitlines() if "registers" in l or "spill" in l]
             for k, v in _build.build_logs.items()})
         q_check = check_qgemm(dev)
         p_check = check_paged(dev)
         t_check = check_tile_scales(dev)
         s_check = check_stencil(dev)
+        v_check = check_qgemv(dev)
         phase("kernels_vs_plain", qgemm=q_check, paged_decode_attention=p_check,
-              qgemm_tile_scales=t_check, stencil3x3=s_check)
+              qgemm_tile_scales=t_check, stencil3x3=s_check, qgemv=v_check)
         q_rows = time_qgemm(dev)
         p_time = time_paged(dev)
         t_rows = time_tile_scales(dev)
         s_rows = time_stencil(dev)
         g_rows = time_qgemm_gptpu(dev)
+        v_rows = time_qgemv(dev, q_rows)
         phase("kernel_times", card=card, qgemm=q_rows, paged_decode_attention=p_time,
-              qgemm_tile_scales=t_rows, stencil3x3=s_rows, qgemm_gptpu=g_rows)
+              qgemm_tile_scales=t_rows, stencil3x3=s_rows, qgemm_gptpu=g_rows,
+              qgemv=v_rows)
+        ops_launches, ops_out = check_ops(dev)
+        phase("ops", launches=ops_launches, **ops_out)
         launches, serve_stats = check_serve()
         phase("serve", card=card, **serve_stats)
         phase("reference", **check_reference())
@@ -841,14 +1070,18 @@ def main() -> int:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
     decode = next(r for r in q_rows if (r["M"], r["K"], r["N"]) == (8, 2048, 5632))
-    by_path = {"serve": launches, "gptpu": gptpu["launches"]}
+    gemv = next(r for r in v_rows if (r["B"], r["K"], r["N"]) == (8, 2048, 5632))
+    by_path = {"serve": launches, "gptpu": gptpu["launches"], "ops": ops_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
+
+    def counted(name):
+        per = {p: c[name] for p, c in by_path.items()}
+        return {"launches": sum(per.values()), "launches_by_path": per}
+
     kernels = [
         {"name": "qgemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qgemm.cu",
-         "replaces": "src/repro/kernels/qgemm.py:60",
-         "launches": launches["qgemm"] + gptpu["launches"]["qgemm"],
-         "launches_by_path": {p: c["qgemm"] for p, c in by_path.items()},
+         "replaces": "src/repro/kernels/qgemm.py:60", **counted("qgemm"),
          "max_abs_err": q_check["max_abs_err"],
          "ms": decode["ms"], "plain_ms": decode["plain_ms"],
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -856,27 +1089,32 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:98",
-         "launches": launches["paged_decode_attention"],
+         **counted("paged_decode_attention"),
          "max_abs_err": p_check["max_abs_err"],
          "ms": p_time["ms"], "plain_ms": p_time["plain_ms"],
          "bound_ms": p_time["bound_ms"], "bound_by": p_time["bound_by"],
          "library_ms": p_time["library_ms"]},
         {"name": "qgemm_tile_scales", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qgemm_tile_scales.cu",
-         "replaces": "src/repro/kernels/qgemm.py:117",
-         "launches": gptpu["launches"]["qgemm_tile_scales"],
+         "replaces": "src/repro/kernels/qgemm.py:117", **counted("qgemm_tile_scales"),
          "max_abs_err": t_check["max_abs_err"],
          "ms": tile["ms"], "plain_ms": tile["plain_ms"],
          "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
          "library_ms": tile["library_ms"]},
         {"name": "stencil3x3", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/stencil3x3.cu",
-         "replaces": "src/repro/kernels/stencil3x3.py:42",
-         "launches": gptpu["launches"]["stencil3x3"],
+         "replaces": "src/repro/kernels/stencil3x3.py:42", **counted("stencil3x3"),
          "max_abs_err": s_check["max_abs_err"],
          "ms": sten["ms"], "plain_ms": sten["plain_ms"],
          "bound_ms": sten["bound_ms"], "bound_by": sten["bound_by"],
          "library_ms": sten["library_ms"]},
+        {"name": "qgemv", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qgemv.cu",
+         "replaces": "src/repro/kernels/qdot_serve.py:36", **counted("qgemv"),
+         "max_abs_err": v_check["max_abs_err"],
+         "ms": gemv["ms"], "plain_ms": gemv["plain_ms"],
+         "bound_ms": gemv["bound_ms"], "bound_by": gemv["bound_by"],
+         "library_ms": gemv["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

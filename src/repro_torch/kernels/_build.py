@@ -52,6 +52,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, w, out, H, W, stream
         "stencil3x3_launch": [P, P, P, I, I, P],
     },
+    "qgemv": {
+        # x, w, scale, out, partial (nullable), B, K, N, rb, kchunk, splits, stream
+        "qgemv_launch": [P, P, P, P, P, I, I, I, I, I, I, P],
+    },
 }
 
 _lock = threading.Lock()

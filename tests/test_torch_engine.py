@@ -133,7 +133,8 @@ def dtype(request):
 
 @pytest.fixture(scope="module")
 def reference(references, dtype):
-    return dict(references[dtype], params=params_from_numpy(references[dtype]["params"]))
+    return dict(references[dtype],
+                params=params_from_numpy(references[dtype]["params"], device="cpu"))
 
 
 @pytest.fixture(scope="module")

@@ -73,7 +73,7 @@ def test_pdot_w8a8_bitwise(shape, K, N):
     w = jtz.quantize(jnp.asarray(rng.standard_normal((K, N)) / np.sqrt(K),
                                  jnp.float32), axis=(-2,))
     ref = JL.pdot(jnp.asarray(x, jnp.bfloat16), w, CFG)
-    tw = params_from_numpy({"w": jax.tree.map(np.asarray, w)})["w"]
+    tw = params_from_numpy({"w": jax.tree.map(np.asarray, w)}, device="cpu")["w"]
     out = TL.pdot(_t(x, torch.bfloat16), tw, TCFG)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == shape + (N,)
     np.testing.assert_array_equal(_np(out), _np(ref))
@@ -113,7 +113,7 @@ def test_apply_mlp_w8a8():
          for n, s in (("wi", (D, F)), ("wg", (D, F)), ("wo", (F, D)))}
     x = _bf16(rng.standard_normal((2, 6, D)))
     ref = _np(JL.apply_mlp(p, jnp.asarray(x, jnp.bfloat16), CFG))
-    out = TL.apply_mlp(params_from_numpy(jax.tree.map(np.asarray, p)),
+    out = TL.apply_mlp(params_from_numpy(jax.tree.map(np.asarray, p), device="cpu"),
                        _t(x, torch.bfloat16), TCFG)
     row_max = np.abs(ref).max(axis=-1, keepdims=True)
     assert np.all(np.abs(_np(out) - ref) <= BF16_ULP * row_max)

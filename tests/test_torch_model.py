@@ -106,7 +106,7 @@ def case(request, reference):
     ref = reference[request.param]
     return dict(ref, tcfg=_cfgs(request.param)[1],
                 last=np.array([15, 6, 10], np.int32),
-                params=params_from_numpy(ref["params"]))
+                params=params_from_numpy(ref["params"], device="cpu"))
 
 
 LOGIT_TOL = {"bfloat16": 0.1, "float32": 1e-4}

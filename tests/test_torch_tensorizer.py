@@ -62,7 +62,7 @@ def test_quantize_params_keeps_layer_axis_and_matches():
 
     ref = jtz.quantize_params(jax.tree.map(jnp.asarray, tree),
                               predicate=lambda path, leaf: keep(path[-1].key))
-    out = ttz.quantize_params(params_from_numpy(tree),
+    out = ttz.quantize_params(params_from_numpy(tree, device="cpu"),
                               predicate=lambda path, leaf: keep(path[-1]))
     wq = out["layers"]["attn"]["wq"]
     assert isinstance(wq, ttz.QTensor) and tuple(wq.scale.shape) == (3, 1, 12)
@@ -75,8 +75,19 @@ def test_quantize_params_keeps_layer_axis_and_matches():
         np.testing.assert_array_equal(o.q.numpy(), np.asarray(r.q))
         np.testing.assert_array_equal(o.scale.numpy(), np.asarray(r.scale))
     # the converter carries the JAX QTensor q/scale pairs across verbatim
-    carried = params_from_numpy(jax.tree.map(np.asarray, ref))
+    carried = params_from_numpy(jax.tree.map(np.asarray, ref), device="cpu")
     np.testing.assert_array_equal(carried["lm_head"].q.numpy(),
                                   np.asarray(ref["lm_head"].q))
     np.testing.assert_array_equal(carried["lm_head"][()].scale.numpy(),
                                   np.asarray(ref["lm_head"].scale))
+
+
+def test_params_from_numpy_defaults_to_the_card():
+    """With no device the converter resolves ``cuda``, as every entry point of
+    the port does: without a card it raises and does not land on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is reachable here")
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        params_from_numpy(tree)
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
