@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by hand
 with ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. No PyTorch headers are included, so a build takes seconds.
+Headers shared by several kernels live beside them as ``csrc/*.cuh``.
 
 The build happens at first use, from the sources in the checkout only, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``). The
-library name carries a hash of its source, so an edited kernel is rebuilt
-and a stale one is never loaded. :func:`build_all` starts one ``nvcc`` per
-source, all at once, and waits for them together.
+library name carries a hash of its source and of every ``csrc/*.cuh``, so
+an edited kernel or header is rebuilt and a stale library is never loaded.
+:func:`build_all` starts one ``nvcc`` per source, all at once, and waits for
+them together.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ F = ctypes.c_float
 # stream are c_void_p: ctypes would otherwise pass them as 32-bit ints.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "qgemm": {
-        # a, b, sb, sa (nullable), out, M, N, K, out_bf16, stream
-        "qgemm_launch": [P, P, P, P, P, I, I, I, I, P],
+        # a, b, sb, sa (nullable), out, scratch (nullable), M, N, K, out_bf16,
+        # config, kchunk, splits, stream
+        "qgemm_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     },
     "paged_attention": {
         # q, k_pool, v_pool, tables, index, out,
@@ -45,8 +48,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "paged_attention_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
     },
     "qgemm_tile_scales": {
-        # a, b, sa, sb, out, M, N, K, stream
-        "qgemm_tile_scales_launch": [P, P, P, P, P, I, I, I, P],
+        # a, b, sa, sb, out, M, N, K, narrow, stream
+        "qgemm_tile_scales_launch": [P, P, P, P, P, I, I, I, I, P],
     },
     "stencil3x3": {
         # x, w, out, H, W, stream
@@ -78,9 +81,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source, of
+    every shared header ``csrc/*.cuh`` (any of which it may include) and of
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:

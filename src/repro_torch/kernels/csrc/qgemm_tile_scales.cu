@@ -15,129 +15,135 @@
 //
 // Bound on this card: 2*M*N*K int8 operations against M*K + K*N bytes in and
 // 4*M*N out. At 4096^3 the int8 tensor-core rate bounds it (at 1024^3 the
-// f32 output's bytes, narrowly); dp4a on the CUDA cores reaches neither.
+// f32 output's bytes, narrowly).
 //
-// Design (simple first): one block of 256 threads per 128x128 output tile;
-// each thread owns an 8x8 sub-grid of outputs (rows ty + 16*i, columns
-// tx + 16*j). For each k tile the A tile is staged row-major and the B tile
-// transposed in shared memory, so every 32-bit shared word holds 4
-// consecutive k values of one row or one column: dp4a's operand layout, as
-// in qgemm.cu. B keeps its public (K, N) layout; the transpose of each 4x4
-// byte block happens in registers. The int32 partials of the tile pair stay
-// in registers and are folded into the f32 accumulators once per k tile.
-// Not yet: tensor cores (mma.sync / wgmma s8), TMA, a pipelined k loop.
+// Design: the int8 tensor-core core of qgemm.cu (int8_mma.cuh: a 4-stage
+// cp.async ring of 32-deep k stages, B in its public (K, N) layout and
+// transposed 4x4 bytes at a time in registers, mma.sync.m16n8k32 s8). A
+// block owns a 64x128 output sub-tile (8 warps of 32x32) or, where those
+// give fewer than 2 blocks per SM (1024^3: 128 of them), a 64x64 one (4
+// warps); either lies inside one 128x128 scale tile and shares its scale.
+// The exact int32 partial of each 128-deep k tile (4 stages) sits in
+// registers and is folded into the f32 accumulators once per k tile, in k
+// order. K is not split across blocks: that would reorder the float adds.
+// Not yet: wgmma, TMA, a persistent schedule.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
-constexpr int T = 128;             // tile edge: the scales' granularity
-constexpr int THREADS = 256;       // 16 x 16
-constexpr int STRIDE = T + 4;      // bytes per shared row: 33 words, odd, so
-                                   // 16 rows at one k hit 16 banks
+using namespace i8mma;
 
-__device__ __forceinline__ uint32_t byte_of(uint32_t w, int i) {
-  return (w >> (8 * i)) & 0xffu;
-}
+constexpr int T = 128;  // tile edge: the scales' granularity
+constexpr int STAGES = 4;
 
-__global__ void __launch_bounds__(THREADS)
-qgemm_tile_scales_kernel(const int8_t* __restrict__ A,
-                         const int8_t* __restrict__ B,
-                         const float* __restrict__ sa,
-                         const float* __restrict__ sb,
+template <int WN>
+__global__ void __launch_bounds__(32 * 2 * WN)
+qgemm_tile_scales_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
+                         const float* __restrict__ sa, const float* __restrict__ sb,
                          float* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) int8_t As[T][STRIDE];   // [m][k]
-  __shared__ __align__(16) int8_t Bs[T][STRIDE];   // [n][k]
+  constexpr int MT = 2, WM = 2;  // 64 rows: 2 warps of 2 m-tiles
+  constexpr int THREADS = 32 * WM * WN;
+  constexpr int BM = 16 * MT * WM, BN = 32 * WN;
+  constexpr int A_BYTES = BM * KS, STAGE = A_BYTES + KS * BN;
+  __shared__ __align__(128) int8_t smem[STAGES * STAGE];
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  const int m0 = bi * T, n0 = bj * T;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int bi = m0 / T, bj = n0 / T;
   const int Kb = K / T, Nb = N / T;
+  const int nst = K / KS;
 
-  float acc[8][8];
+  int p[MT][4][4];
+  float acc[MT][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int kb = 0; kb < Kb; ++kb) {
-    const int k0 = kb * T;
-    // A tile: 128 rows x 32 words, read along k (coalesced), stored as is.
-    for (int c = tid; c < T * (T / 4); c += THREADS) {
-      const int r = c / (T / 4), kw = c % (T / 4);
-      *reinterpret_cast<uint32_t*>(&As[r][4 * kw]) =
-          *reinterpret_cast<const uint32_t*>(A + static_cast<size_t>(m0 + r) * K +
-                                             k0 + 4 * kw);
-    }
-    // B tile: 32 groups of 4 k rows x 32 groups of 4 columns; each thread
-    // reads a 4x4 byte block (4 words along n) and writes it transposed
-    // (4 words along k).
-    for (int c = tid; c < (T / 4) * (T / 4); c += THREADS) {
-      const int kg = c / (T / 4), ng = c % (T / 4);
-      const int8_t* src = B + static_cast<size_t>(k0 + 4 * kg) * N + n0 + 4 * ng;
-      uint32_t r[4];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = *reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(i) * N);
-#pragma unroll
-      for (int col = 0; col < 4; ++col) {
-        const uint32_t w = byte_of(r[0], col) | (byte_of(r[1], col) << 8) |
-                           (byte_of(r[2], col) << 16) | (byte_of(r[3], col) << 24);
-        *reinterpret_cast<uint32_t*>(&Bs[4 * ng + col][4 * kg]) = w;
+      for (int c = 0; c < 4; ++c) {
+        p[i][j][c] = 0;
+        acc[i][j][c] = 0.0f;
       }
-    }
-    __syncthreads();
 
-    int p[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) p[i][j] = 0;
-#pragma unroll 4
-    for (int kk = 0; kk < T; kk += 4) {
-      int a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const int*>(&As[ty + 16 * i][kk]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = *reinterpret_cast<const int*>(&Bs[tx + 16 * j][kk]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) p[i][j] = __dp4a(a[i], b[j], p[i][j]);
-    }
-    __syncthreads();
+  auto load = [&](int s) {
+    int8_t* st = smem + (s % STAGES) * STAGE;
+    load_a_stage<BM, THREADS, true>(st, A, M, K, m0, KS * s, tid);
+    load_b_stage<BN, THREADS, true>(st + A_BYTES, B, K, N, KS * s, n0, tid);
+  };
 
-    const float s = __fmul_rn(sa[bi * Kb + kb], sb[kb * Nb + bj]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(__int2float_rn(p[i][j]), s));
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load(s);
+    cp_async_commit();
   }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s has landed; every warp is done with stage s - 1
+    if (s + STAGES - 1 < nst) load(s + STAGES - 1);
+    cp_async_commit();
+    const int8_t* st = smem + (s % STAGES) * STAGE;
+    uint32_t b[4][2];
+    load_b_frags<BN>(st + A_BYTES, 32 * wn, lane, b);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      uint32_t a[4];
+      load_a_frag(st, 16 * (MT * wm + i), lane, a);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(p[i][j], a, b[j]);
+    }
+    if ((s + 1) % (T / KS) == 0) {  // the k tile is complete: fold it in
+      const int kb = s / (T / KS);
+      const float sc = __fmul_rn(sa[bi * Kb + kb], sb[kb * Nb + bj]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[i][j][c] = __fadd_rn(acc[i][j][c], __fmul_rn(__int2float_rn(p[i][j][c]), sc));
+            p[i][j][c] = 0;
+          }
+    }
+  }
+  cp_async_wait<0>();
 
+  const int g = lane >> 2, t = lane & 3;
+  const int col = n0 + 32 * wn + 8 * t;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      out[static_cast<size_t>(m0 + ty + 16 * i) * N + n0 + tx + 16 * j] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 16 * (MT * wm + i) + g + 8 * h;
+      float v[8];
+      row_values(acc[i], h, v);
+      float4* dst = reinterpret_cast<float4*>(out + static_cast<size_t>(row) * N + col);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
 }
 
 }  // namespace
 
-// a (M, K) int8, b (K, N) int8, sa (M/128, K/128) f32, sb (K/128, N/128)
-// f32, out (M, N) f32; M, N, K multiples of 128 (the wrapper checks).
-extern "C" int qgemm_tile_scales_launch(const void* a, const void* b,
-                                        const void* sa, const void* sb,
-                                        void* out, int M, int N, int K,
-                                        void* stream) {
-  dim3 grid(N / T, M / T);
-  qgemm_tile_scales_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-      static_cast<const float*>(sa), static_cast<const float*>(sb),
-      static_cast<float*>(out), M, N, K);
+// a (M, K) int8, b (K, N) int8, both 16-byte aligned; sa (M/128, K/128) f32,
+// sb (K/128, N/128) f32, out (M, N) f32; M, N, K multiples of 128 (the
+// wrapper checks). narrow = 1 takes the 64x64 sub-tiles, 0 the 64x128 ones.
+extern "C" int qgemm_tile_scales_launch(const void* a, const void* b, const void* sa,
+                                        const void* sb, void* out, int M, int N, int K,
+                                        int narrow, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* A = static_cast<const int8_t*>(a);
+  const auto* Bp = static_cast<const int8_t*>(b);
+  const auto* SA = static_cast<const float*>(sa);
+  const auto* SB = static_cast<const float*>(sb);
+  auto* O = static_cast<float*>(out);
+  if (narrow)
+    qgemm_tile_scales_kernel<2><<<dim3(N / 64, M / 64), 128, 0, s>>>(A, Bp, SA, SB, O, M, N, K);
+  else
+    qgemm_tile_scales_kernel<4><<<dim3(N / 128, M / 64), 256, 0, s>>>(A, Bp, SA, SB, O, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

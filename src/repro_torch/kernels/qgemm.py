@@ -24,11 +24,21 @@ with ``P_ikj`` the exact int32 product of one 128-deep tile pair, one scale
 per 128x128 tile of each operand (``sa`` (M/128, K/128), ``sb`` (K/128,
 N/128) f32), M, N and K multiples of 128 as the Pallas wrapper asserted.
 Each step rounds the scale product, the multiply and the add, in that order.
+
+On the card both run on the int8 tensor cores. ``qgemm`` has two regimes,
+which :func:`plan` picks from the shape: at M <= 16 (decode) the rows of A
+are padded to one 16-row tile and the weight is streamed once through 128-,
+64- or 32-column stripes; above that, 128x128, 128x64 or 64x64 output
+tiles. In both, K is split across blocks until the grid holds about two
+blocks per SM; the splits' int32 sums add exactly, so the result does not
+depend on the plan. ``qgemm_tile_scales`` runs 64x128 or 64x64 sub-tiles of
+its 128x128 scale tiles, K unsplit.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,6 +46,66 @@ from repro_torch.kernels import _build
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 TILE = 128
+KSTEP = 32          # k depth of one pipeline stage: a split is whole stages
+DECODE_M = 16       # M up to this takes the decode regime
+BLOCKS_PER_SM = 2   # the plan splits K until the grid holds this many per SM
+
+# Output tiles of the CUDA kernel, (config id, rows, columns), widest first:
+# the ids are those of csrc/qgemm.cu's qgemm_launch.
+DECODE_TILES = ((0, 16, 128), (1, 16, 64), (2, 16, 32))
+LARGE_TILES = ((3, 128, 128), (4, 128, 64), (5, 64, 64))
+
+
+class Plan(NamedTuple):
+    config: int     # tile id passed to the kernel
+    bm: int         # output tile rows
+    bn: int         # output tile columns
+    kchunk: int     # K range of one split, a multiple of KSTEP
+    splits: int     # blocks along K per output tile
+
+    def blocks(self, M: int, N: int) -> int:
+        return -(-M // self.bm) * -(-N // self.bn) * self.splits
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(M: int, K: int, N: int, sms: int) -> Plan:
+    """The launch plan of ``qgemm``'s kernel. The regime comes from M: decode
+    tiles at M <= ``DECODE_M``, else large tiles. For each tile, K is split
+    in whole steps into at least as many ranges as the grid needs to hold
+    ``BLOCKS_PER_SM`` blocks per SM, or into one range per step; a tile
+    whose output tiles alone reach that runs unsplit. Decode takes the
+    widest tile that reaches the target: wide stripes read the weight in
+    long runs, and the splits' sums are only M rows. Large M takes the
+    widest tile that reaches it unsplit, else the one that needs the fewest
+    splits, since each split writes an M x N plane of sums. Where no tile
+    reaches the target, the plan with the most blocks. Cached: a decode step
+    asks for the same few shapes on every call."""
+    tiles = DECODE_TILES if M <= DECODE_M else LARGE_TILES
+    target = BLOCKS_PER_SM * sms
+    steps = -(-K // KSTEP)
+    plans = []
+    for config, bm, bn in tiles:
+        n_tiles = -(-M // bm) * -(-N // bn)
+        per = max(1, steps // -(-target // n_tiles))     # K steps per split
+        plans.append(Plan(config, bm, bn, per * KSTEP, -(-steps // per)))
+    full = [p for p in plans if p.blocks(M, N) >= target]
+    if not full:
+        return max(plans, key=lambda p: p.blocks(M, N))
+    if M <= DECODE_M:
+        return full[0]
+    return min(full, key=lambda p: p.splits)
+
+
+def tile_scales_narrow(M: int, N: int, sms: int) -> bool:
+    """Whether ``qgemm_tile_scales``' kernel takes 64x64 output sub-tiles:
+    where its 64x128 ones are fewer than ``BLOCKS_PER_SM`` per SM. K is
+    never split: that would reorder the f32 adds."""
+    return (M // 64) * (N // 128) < BLOCKS_PER_SM * sms
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _i32_product(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
@@ -96,12 +166,17 @@ def qgemm(a_q: torch.Tensor, b_q: torch.Tensor, sb: torch.Tensor,
         raise ValueError(f"qgemm: unsupported device {a_q.device}")
     M, K = a_q.shape
     N = b_q.shape[1]
+    p = plan(M, K, N, _sm_count(a_q.device.index))
     out = torch.empty((M, N), dtype=out_dtype, device=a_q.device)
+    # each split's int32 sums, added by the kernel's second pass
+    partial = (torch.empty((p.splits, M, N), dtype=torch.int32, device=a_q.device)
+               if p.splits > 1 else None)
     lib = _build.library("qgemm")
     err = lib.qgemm_launch(
         a_q.data_ptr(), b_q.data_ptr(), sb.data_ptr(),
         sa.data_ptr() if sa is not None else None, out.data_ptr(),
-        M, N, K, int(out_dtype == torch.bfloat16),
+        partial.data_ptr() if partial is not None else None,
+        M, N, K, int(out_dtype == torch.bfloat16), p.config, p.kchunk, p.splits,
         torch.cuda.current_stream(a_q.device).cuda_stream)
     _build.check(err, "qgemm")
     qgemm.launches += 1
@@ -161,15 +236,16 @@ def qgemm_tile_scales(a_q: torch.Tensor, b_q: torch.Tensor, sa: torch.Tensor,
         return qgemm_tile_scales_plain(a_q, b_q, sa, sb)
     if a_q.device.type != "cuda":
         raise ValueError(f"qgemm_tile_scales: unsupported device {a_q.device}")
-    if a_q.data_ptr() % 4 or b_q.data_ptr() % 4:
-        raise ValueError("qgemm_tile_scales: a_q and b_q must be 4-byte aligned")
+    if a_q.data_ptr() % 16 or b_q.data_ptr() % 16:
+        raise ValueError("qgemm_tile_scales: a_q and b_q must be 16-byte aligned")
     M, K = a_q.shape
     N = b_q.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
     lib = _build.library("qgemm_tile_scales")
     err = lib.qgemm_tile_scales_launch(
         a_q.data_ptr(), b_q.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
-        M, N, K, torch.cuda.current_stream(a_q.device).cuda_stream)
+        M, N, K, int(tile_scales_narrow(M, N, _sm_count(a_q.device.index))),
+        torch.cuda.current_stream(a_q.device).cuda_stream)
     _build.check(err, "qgemm_tile_scales")
     qgemm_tile_scales.launches += 1
     return out

@@ -175,12 +175,15 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_tile_scales_kernel_matches_plain_on_card(cuda_device):
+    """Both sub-tile sizes (64x64 where the 64x128 ones are too few to fill
+    the card: 1024^3), operands holding int8's -128: bitwise."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for M, K, N in ((128, 256, 128), (384, 1024, 256)):
-        a = torch.randint(-127, 128, (M, K), generator=gen, device=cuda_device,
+    for M, K, N in ((128, 256, 128), (384, 1024, 256), (1024, 1024, 1024), (2048, 512, 4096)):
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=cuda_device,
                           dtype=torch.int8)
-        b = torch.randint(-127, 128, (K, N), generator=gen, device=cuda_device,
+        b = torch.randint(-128, 128, (K, N), generator=gen, device=cuda_device,
                           dtype=torch.int8)
+        a[0, :], b[:, 0] = -128, -128
         sa = torch.rand((M // T, K // T), generator=gen, device=cuda_device) * 1e-2
         sb = torch.rand((K // T, N // T), generator=gen, device=cuda_device) * 1e-2
         assert torch.equal(tq.qgemm_tile_scales(a, b, sa, sb),

@@ -220,18 +220,33 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_qgemm_kernel_matches_plain_on_card(cuda_device):
+    """Both regimes (M <= 16 and above), split and unsplit K, ragged and
+    unaligned M, N and K (the staged path), and operands holding int8's -128:
+    bitwise against the plain version, int32 sums exactly."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for M, K, N in ((1, 2048, 256), (8, 5632, 2048), (37, 130, 257)):
-        a = torch.randint(-127, 128, (M, K), generator=gen, device=cuda_device,
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    shapes = [(M, K, N) for M in (1, 8, 16, 17, 128)
+              for K, N in ((2048, 256), (5632, 2048), (2048, 32000))]
+    shapes += [(37, 130, 257), (7, 5632, 33), (13, 130, 257), (20, 32, 64),
+               (4096, 1024, 1024)]
+    splits = set()
+    for M, K, N in shapes:
+        splits.add(tq.plan(M, K, N, sms).splits > 1)
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=cuda_device,
                           dtype=torch.int8)
-        b = torch.randint(-127, 128, (K, N), generator=gen, device=cuda_device,
+        b = torch.randint(-128, 128, (K, N), generator=gen, device=cuda_device,
                           dtype=torch.int8)
+        a[0, :], b[:, 0] = -128, -128
         sb = torch.rand(N, generator=gen, device=cuda_device) * 1e-2
         sa = torch.rand(M, generator=gen, device=cuda_device) * 1e-1
         ones = torch.ones(N, device=cuda_device)
-        assert torch.equal(tq.qgemm(a, b, ones), tq.qgemm_plain(a, b, ones))
+        acc = tq.qgemm(a, b, ones)
+        assert torch.equal(acc, tq.qgemm_plain(a, b, ones))
+        assert torch.equal(acc.double(), a.double() @ b.double())
+        assert torch.equal(tq.qgemm(a, b, sb), tq.qgemm_plain(a, b, sb))
         assert torch.equal(tq.qgemm(a, b, sb, sa, torch.bfloat16),
                            tq.qgemm_plain(a, b, sb, sa, torch.bfloat16))
+    assert splits == {False, True}
 
 
 @pytest.mark.cuda
