@@ -12,7 +12,9 @@ Run from the root of a checkout. Phases, one JSON line each:
                 its paths' shapes (qgemm: int32-exact and the bf16 pdot
                 epilogue bitwise, in both regimes of its plan and both split
                 paths, ragged shapes and -128 operands included; paged
-                attention: partial leases and poisoned cells, 1e-5;
+                attention: partial leases, horizons on split boundaries, at
+                0, at the last cell and past S, the 2048-token context,
+                poisoned cells, 1e-5;
                 tile-scales GEMM bitwise; stencil bitwise, and on int8 codes
                 bitwise against an int64 sum; qgemv within rtol 2e-4 / atol
                 1e-4, odd B included, two launches bitwise equal, bad
@@ -34,8 +36,8 @@ Run from the root of a checkout. Phases, one JSON line each:
                 on the CPU through the plain versions (f32 compute dtype:
                 prefill and three decode steps)
   8. decode_profile — host time of a served decode step beside the device
-                time torch.profiler sees in it, qgemm's share of it, and its
-                top kernels
+                time torch.profiler sees in it, qgemm's and paged
+                attention's shares of it, and its top kernels
   9. gptpu    — the GPTPU library path: the card's instruction table and
                 the tpuGemm lowering it picks, tpuGemm at 4096^3 in both
                 lowerings against an fp64 product, the seven applications
@@ -48,9 +50,8 @@ Run from the root of a checkout. Phases, one JSON line each:
                 time torch.profiler sees in it, and its top kernels
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
-launches on the three paths: serve, gptpu and ops; qgemm's and
-qgemm_tile_scales' ``ms`` and ``library_ms`` there are device times, from
-CUDA graphs) and, last, the
+launches on the three paths: serve, gptpu and ops; ``ms`` and
+``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
 """
@@ -268,69 +269,131 @@ def paged_bound(q, k_pool, tables, index):
     return bound(moved, 4 * positions * H * hd, F32_OPS_PER_S)
 
 
+def paged_full_case(dev, index, MB, B=8, H=32, KV=4, hd=64, bs=16, seed=5):
+    """Every lease full (MB entries per slot, no null block in a table) and
+    the horizons given: ``index`` may run past the S = MB * bs cells, as an
+    idle slot's does."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    NB = B * MB + 1
+    q = torch.randn((B, H, hd), generator=gen)
+    k = torch.randn((NB, bs, KV, hd), generator=gen).to(torch.bfloat16)
+    v = torch.randn((NB, bs, KV, hd), generator=gen).to(torch.bfloat16)
+    tables = torch.randperm(NB - 1, generator=gen)[:B * MB].reshape(B, MB).int() + 1
+    return [t.to(dev) for t in (q, k, v, tables, torch.tensor(index, dtype=torch.int32))]
+
+
+def poisoned(k, v, tables, index):
+    """Copies of the pools with the null block at 1e4 and every cell of every
+    slot past its horizon at -1e4: whole splits past the horizon included."""
+    import torch
+    kp, vp = k.clone(), v.clone()
+    B, MB = tables.shape
+    bs = k.shape[1]
+    pos = torch.arange(MB * bs, device=k.device).reshape(MB, bs)
+    past = pos[None] > index[:, None, None]                  # (B, MB, bs)
+    blk = tables[:, :, None].expand(B, MB, bs)[past].long()
+    t = torch.arange(bs, device=k.device).expand(B, MB, bs)[past]
+    kp[blk, t], vp[blk, t] = -1e4, -1e4
+    kp[0], vp[0] = 1e4, 1e4
+    return kp, vp
+
+
 def check_paged(dev):
+    """Against the plain version at rtol = atol = 1e-5 (the online softmax
+    and the plain full-row softmax differ only by f32 rounding), in every
+    case; with the null block and every cell past each horizon poisoned the
+    output must not move; two launches bitwise equal. Cases: the serving
+    shape (partial leases); its horizons on and beside split boundaries, at
+    0, at the table's last cell and past S (an idle slot); the long-context
+    shape (MB = 128) with every horizon at the last cell, and with mixed
+    horizons whose slots leave whole splits past the horizon; MHA with f32
+    pools in one split."""
     import torch
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
-    q, k, v, tables, index = paged_case(dev)
-    out = paged_decode_attention(q, k, v, tables, index)
-    ref = paged_decode_attention_plain(q, k, v, tables, index)
-    err = float((out - ref).abs().max())
-    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5), f"paged attention err {err}")
-    # poison the null block and every cell past each slot's horizon
-    kp, vp = k.clone(), v.clone()
-    kp[0], vp[0] = 1e4, 1e4
-    bs = k.shape[1]
-    for b in range(tables.shape[0]):
-        for j in range(tables.shape[1]):
-            blk = int(tables[b, j])
-            if blk:
-                for t in range(bs):
-                    if j * bs + t > int(index[b]):
-                        kp[blk, t], vp[blk, t] = -1e4, -1e4
-    poisoned = paged_decode_attention(q, kp, vp, tables, index)
-    check(torch.allclose(poisoned, out, rtol=1e-5, atol=1e-5),
-          "paged attention leaks masked cells")
-    # one more head layout: MHA, f32 pools, a full lease
-    q2, k2, v2, t2, i2 = paged_case(dev, B=3, H=4, KV=4, hd=16, bs=8, MB=3, seed=4)
-    k2, v2 = k2.float(), v2.float()
-    err2 = float((paged_decode_attention(q2, k2, v2, t2, i2)
-                  - paged_decode_attention_plain(q2, k2, v2, t2, i2)).abs().max())
-    check(err2 <= 1e-5, f"paged attention (MHA, f32 pools) err {err2}")
+        paged_decode_attention, paged_decode_attention_plain, plan)
+    per = plan(10, 16, 32, 4).per * 16                       # positions per split
+    cases = {
+        "serving": paged_case(dev),
+        "serving_edges": paged_full_case(
+            dev, [0, per - 1, per, 2 * per - 1, 2 * per, 159, 159 + 37, 100], 10),
+        "long_full": paged_full_case(dev, [2047] * 8, 128, seed=6),
+        "long_edges": paged_full_case(
+            dev, [0, 127, 128, 1023, 1024, 2047, 2047 + 500, 5], 128, seed=7),
+        "mha_f32": [t.float() if t.dtype == torch.bfloat16 else t for t in
+                    paged_case(dev, B=3, H=4, KV=4, hd=16, bs=8, MB=3, seed=4)],
+    }
+    out_rows, max_err = {}, 0.0
+    for name, (q, k, v, tables, index) in cases.items():
+        out = paged_decode_attention(q, k, v, tables, index)
+        ref = paged_decode_attention_plain(q, k, v, tables, index)
+        err = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+              f"paged attention ({name}) err {err}")
+        check(torch.equal(out, paged_decode_attention(q, k, v, tables, index)),
+              f"paged attention ({name}): two launches differ")
+        kp, vp = poisoned(k, v, tables, index)
+        pois = paged_decode_attention(q, kp, vp, tables, index)
+        check(torch.allclose(pois, out, rtol=1e-5, atol=1e-5),
+              f"paged attention ({name}) leaks masked cells")
+        B, H, _ = q.shape
+        p = plan(tables.shape[1], k.shape[1], H, k.shape[2])
+        out_rows[name] = {"max_abs_err": err, "plan": list(p), "blocks": p.blocks(B, H),
+                          "index": index.tolist()}
+        max_err = max(max_err, err)
+    check(out_rows["long_full"]["plan"][0] > 1 and out_rows["mha_f32"]["plan"][0] == 1,
+          f"paged attention cases missed the split or the one-split path: {out_rows}")
     torch.cuda.synchronize()
-    return {"max_abs_err": max(err, err2)}
+    return {"cases": out_rows, "max_abs_err": max_err}
 
 
 def time_paged(dev):
-    """Kernel, plain and library times at the main-path shape, pools cold."""
+    """Kernel, plain and library times at the serving shape and at the
+    long-context shape (8 slots, MB = 128: tinyllama's 2048-token context,
+    every lease full, every horizon at the last cell), pools cold. ``ms``,
+    ``plain_ms`` and ``library_ms`` are eager means (``time_ms``);
+    ``graph_ms`` and ``library_graph_ms`` device times (``graph_ms``)."""
     import itertools
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
-    q, k, v, tables, index = paged_case(dev)
-    # cold pools: each layer of a decode step reads its own pool once
-    pools = itertools.cycle(cold_copies(lambda: (k.clone(), v.clone()),
-                                        2 * k.numel() * k.element_size()))
-    ms = time_ms(lambda: paged_decode_attention(q, *next(pools), tables, index), 100)
-    plain = time_ms(lambda: paged_decode_attention_plain(q, *next(pools), tables, index), 20)
-    # yardstick: SDPA over the already-gathered, head-expanded bf16 view
-    B, H, hd = q.shape
-    S = tables.shape[1] * k.shape[1]
-    rep = H // k.shape[2]
+        paged_decode_attention, paged_decode_attention_plain, plan)
+    rows = []
+    for name, case in (("serving", paged_case(dev)),
+                       ("long", paged_full_case(dev, [2047] * 8, 128, seed=8))):
+        q, k, v, tables, index = case
+        # cold pools: each layer of a decode step reads its own pool once
+        pools = itertools.cycle(cold_copies(lambda: (k.clone(), v.clone()),
+                                            2 * k.numel() * k.element_size()))
+        ms = time_ms(lambda: paged_decode_attention(q, *next(pools), tables, index), 100)
+        g_ms = graph_ms(lambda: paged_decode_attention(q, *next(pools), tables, index), 100)
+        plain = time_ms(lambda: paged_decode_attention_plain(q, *next(pools), tables, index),
+                        20 if name == "serving" else 5)
+        del pools
+        # yardstick: SDPA over the already-gathered, head-expanded bf16 view
+        B, H, hd = q.shape
+        S = tables.shape[1] * k.shape[1]
+        rep = H // k.shape[2]
 
-    def gathered(pool):
-        g = pool[tables.reshape(-1).long()].reshape(B, S, -1, hd).repeat_interleave(rep, 2)
-        return g.transpose(1, 2).contiguous()
+        def gathered(pool):
+            g = pool[tables.reshape(-1).long()].reshape(B, S, -1, hd).repeat_interleave(rep, 2)
+            return g.transpose(1, 2).contiguous()
 
-    views = itertools.cycle(cold_copies(lambda: (gathered(k), gathered(v)),
-                                        2 * B * H * S * hd * k.element_size()))
-    qb = q.to(torch.bfloat16)[:, :, None]
-    mask = (torch.arange(S, device=dev)[None, :] <= index[:, None])[:, None, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qb, *next(views), attn_mask=mask), 100)
-    bound_ms, by = paged_bound(q, k, tables, index)
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound_ms,
-            "bound_by": by}
+        views = itertools.cycle(cold_copies(lambda: (gathered(k), gathered(v)),
+                                            2 * B * H * S * hd * k.element_size()))
+        qb = q.to(torch.bfloat16)[:, :, None]
+        mask = (torch.arange(S, device=dev)[None, :] <= index[:, None])[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qb, *next(views), attn_mask=mask),
+                      100)
+        lib_graph = graph_ms(lambda: F.scaled_dot_product_attention(qb, *next(views),
+                                                                    attn_mask=mask), 100)
+        del views
+        bound_ms, by = paged_bound(q, k, tables, index)
+        rows.append({"shape": name, "B": B, "MB": tables.shape[1],
+                     "plan": list(plan(tables.shape[1], k.shape[1], H, k.shape[2])),
+                     "ms": ms, "graph_ms": g_ms, "plain_ms": plain, "library_ms": lib,
+                     "library_graph_ms": lib_graph, "bound_ms": bound_ms, "bound_by": by})
+    return rows
 
 
 # ---------------------------------------------------- tile-scales GEMM
@@ -432,8 +495,9 @@ def stencil_bound(H, W):
 
 
 def time_stencil(dev):
-    """At 1024^2 and 4096^2, the field cold. Library yardstick: F.conv2d on
-    the (1, 1, H, W) field with TF32 off."""
+    """At 1024^2 and 4096^2, the field cold: eager means and device times (as
+    in ``time_qgemm``). Library yardstick: F.conv2d on the (1, 1, H, W)
+    field with TF32 off."""
     import itertools
     import torch
     import torch.nn.functional as F
@@ -447,12 +511,15 @@ def time_stencil(dev):
         xs = itertools.cycle(cold_copies(lambda: torch.randn((n, n), generator=gen, device=dev),
                                          4 * n * n))
         ms = time_ms(lambda: stencil3x3(next(xs), w), 50)
+        g_ms = graph_ms(lambda: stencil3x3(next(xs), w), 50)
         plain = time_ms(lambda: stencil3x3_plain(next(xs), w), 10)
         with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                          deterministic=cudnn.deterministic, allow_tf32=False):
             lib = time_ms(lambda: F.conv2d(next(xs)[None, None], w4, padding=1), 50)
+            lib_graph = graph_ms(lambda: F.conv2d(next(xs)[None, None], w4, padding=1), 50)
         bound_ms, by = stencil_bound(n, n)
-        rows.append({"H": n, "W": n, "ms": ms, "plain_ms": plain, "library_ms": lib,
+        rows.append({"H": n, "W": n, "ms": ms, "graph_ms": g_ms, "plain_ms": plain,
+                     "library_ms": lib, "library_graph_ms": lib_graph,
                      "bound_ms": bound_ms, "bound_by": by})
     return rows
 
@@ -808,6 +875,7 @@ def profile_decode():
     return {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "qgemm_ms_per_step": device_time(prof, n, 0, "qgemm")[0],
+            "paged_attention_ms_per_step": device_time(prof, n, 0, "paged_attention")[0],
             "top_kernels_ms_per_step": top}
 
 
@@ -1116,12 +1184,12 @@ def main() -> int:
         phase("kernels_vs_plain", qgemm=q_check, paged_decode_attention=p_check,
               qgemm_tile_scales=t_check, stencil3x3=s_check, qgemv=v_check)
         q_rows = time_qgemm(dev)
-        p_time = time_paged(dev)
+        p_rows = time_paged(dev)
         t_rows = time_tile_scales(dev)
         s_rows = time_stencil(dev)
         g_rows = time_qgemm_gptpu(dev)
         v_rows = time_qgemv(dev, q_rows)
-        phase("kernel_times", card=card, qgemm=q_rows, paged_decode_attention=p_time,
+        phase("kernel_times", card=card, qgemm=q_rows, paged_decode_attention=p_rows,
               qgemm_tile_scales=t_rows, stencil3x3=s_rows, qgemm_gptpu=g_rows,
               qgemv=v_rows)
         ops_launches, ops_out = check_ops(dev)
@@ -1144,6 +1212,7 @@ def main() -> int:
     gemv = next(r for r in v_rows if (r["B"], r["K"], r["N"]) == (8, 2048, 5632))
     by_path = {"serve": launches, "gptpu": gptpu["launches"], "ops": ops_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
+    paged = p_rows[0]                           # the serving shape
 
     def counted(name):
         per = {p: c[name] for p, c in by_path.items()}
@@ -1162,9 +1231,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:98",
          **counted("paged_decode_attention"),
          "max_abs_err": p_check["max_abs_err"],
-         "ms": p_time["ms"], "plain_ms": p_time["plain_ms"],
-         "bound_ms": p_time["bound_ms"], "bound_by": p_time["bound_by"],
-         "library_ms": p_time["library_ms"]},
+         "ms": paged["graph_ms"], "plain_ms": paged["plain_ms"],
+         "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
+         "library_ms": paged["library_graph_ms"]},
         {"name": "qgemm_tile_scales", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qgemm_tile_scales.cu",
          "replaces": "src/repro/kernels/qgemm.py:117", **counted("qgemm_tile_scales"),
@@ -1176,9 +1245,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/stencil3x3.cu",
          "replaces": "src/repro/kernels/stencil3x3.py:42", **counted("stencil3x3"),
          "max_abs_err": s_check["max_abs_err"],
-         "ms": sten["ms"], "plain_ms": sten["plain_ms"],
+         "ms": sten["graph_ms"], "plain_ms": sten["plain_ms"],
          "bound_ms": sten["bound_ms"], "bound_by": sten["bound_by"],
-         "library_ms": sten["library_ms"]},
+         "library_ms": sten["library_graph_ms"]},
         {"name": "qgemv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qgemv.cu",
          "replaces": "src/repro/kernels/qdot_serve.py:36", **counted("qgemv"),

@@ -43,9 +43,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "qgemm_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     },
     "paged_attention": {
-        # q, k_pool, v_pool, tables, index, out,
-        # B, H, KV, hd, bs, MB, n_blocks, pool_bf16, sm_scale, stream
-        "paged_attention_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+        # q, k_pool, v_pool, tables, index, out, partial (nullable),
+        # B, H, KV, hd, bs, MB, n_blocks, pool_bf16, splits, per, heads,
+        # sm_scale, stream
+        "paged_attention_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
+                                   F, P],
     },
     "qgemm_tile_scales": {
         # a, b, sa, sb, out, M, N, K, narrow, stream

@@ -250,10 +250,30 @@ def test_qgemm_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_paged_attention_kernel_matches_plain_on_card(cuda_device):
-    q, kp, vp, tables, index = [t.to(cuda_device) for t in
-                                _torch(*_paged_case(8, 32, 4, 64, 16, 6, seed=2))]
+@pytest.mark.parametrize("MB,horizons", [
+    (6, None),                                  # partial leases, 3 splits
+    (10, [0, 31, 32, 63, 159, 159 + 40, 100, 5]),   # split edges, last cell, idle slot
+    (128, [2047] * 8),                          # the 2048-token context, 8 splits
+])
+def test_paged_attention_kernel_matches_plain_on_card(cuda_device, MB, horizons):
+    """The split kernel (and its combine) against the plain version with bf16
+    pools, then with the null block and every cell past each horizon
+    poisoned; two launches bitwise equal."""
+    q, kp, vp, tables, index = _paged_case(8, 32, 4, 64, 16, MB, seed=2)
+    if horizons is not None:
+        tables = np.arange(1, 8 * MB + 1, dtype=np.int32).reshape(8, MB)   # full leases
+        index = np.asarray(horizons, np.int32)
+    q, kp, vp, tables, index = [t.to(cuda_device) for t in _torch(q, kp, vp, tables, index)]
     kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
     out = tpa.paged_decode_attention(q, kp, vp, tables, index)
     expect = tpa.paged_decode_attention_plain(q, kp, vp, tables, index)
     torch.testing.assert_close(out, expect, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, tpa.paged_decode_attention(q, kp, vp, tables, index))
+    pos = torch.arange(MB * 16, device=cuda_device).reshape(MB, 16)
+    past = pos[None] > index[:, None, None]
+    blk = tables[:, :, None].expand(-1, -1, 16)[past].long()
+    cell = torch.arange(16, device=cuda_device).expand(8, MB, 16)[past]
+    kp[blk, cell], vp[blk, cell] = -1e4, -1e4
+    kp[0], vp[0] = 1e4, 1e4
+    torch.testing.assert_close(tpa.paged_decode_attention(q, kp, vp, tables, index), out,
+                               rtol=1e-5, atol=1e-5)
