@@ -15,11 +15,16 @@ Run from the root of a checkout. Phases, one JSON line each:
                 attention: partial leases, horizons on split boundaries, at
                 0, at the last cell and past S, the 2048-token context,
                 poisoned cells, 1e-5;
-                tile-scales GEMM bitwise; stencil bitwise, and on int8 codes
-                bitwise against an int64 sum; qgemv within rtol 2e-4 / atol
-                1e-4, odd B included, two launches bitwise equal, bad
-                operands refused), then timed beside its plain version, a
-                PyTorch library yardstick and its bound
+                tile-scales GEMM bitwise; stencil bitwise at shapes on its
+                plan's edges (W % 4 != 0, H = 1, W = 1, H around a strip
+                boundary, an unaligned view), and on int8 codes bitwise
+                against an int64 sum; qgemv within rtol 2e-4 / atol 1e-4
+                on both its paths (B from 1 to 16, ragged K, K shorter than
+                the cluster's stages, weights only 4-byte aligned), its
+                fp64 error at most 4x the plain version's, two launches
+                bitwise equal, bad operands refused), then timed beside its
+                plain version, a PyTorch library yardstick and its bound,
+                with each launch plan
   4. ops      — the public kernel entries (repro_torch.kernels.ops: qgemm_f32,
                 qgemm_i32, qgemm_tiles, stencil, qgemv) on the card against
                 the same entries on CPU copies, each launching its kernel
@@ -140,6 +145,21 @@ def cold_copies(make, nbytes):
     reads its operand from device memory, as a decode step reads each
     layer's weights and pool once."""
     return [make() for _ in range(max(2, int(2 * L2_BYTES // nbytes) + 1))]
+
+
+def sms_of(dev):
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def plan_of(module, *args):
+    """The launch plan ``module.plan(*args)`` as JSON (None for a module
+    without one)."""
+    fn = getattr(module, "plan", None)
+    if fn is None:
+        return None
+    p = fn(*args)
+    return p._asdict() if hasattr(p, "_asdict") else list(p)
 
 
 # --------------------------------------------------------------- qgemm
@@ -461,30 +481,46 @@ def time_tile_scales(dev):
 
 def check_stencil(dev):
     """Bitwise against the plain version (the same nine multiply-adds from
-    zero, in the same order, each rounded); on int8 codes as f32, bitwise
+    zero, in the same order, each rounded), at shapes on the plan's edges:
+    W % 4 in {1, 2, 3} (width 1), H = 1 and W = 1, H one row under, at and
+    over a strip boundary, and a contiguous view whose base is not 16-byte
+    aligned (width 1 though W % 4 == 0); on int8 codes as f32, bitwise
     against the int64 sum computed on the card (every partial sum < 2^24)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.stencil3x3 import stencil3x3, stencil3x3_plain
+    from repro_torch.kernels import stencil3x3 as ts
     gen = torch.Generator(device=dev).manual_seed(9)
-    shapes = [(64, 128), (100, 300), (257, 129), (4096, 4096)]
+    sms = sms_of(dev)
+    shapes = [(64, 128), (100, 300), (257, 129), (4096, 4096),
+              (37, 129), (64, 130), (50, 131), (1, 1), (1, 256), (77, 1),
+              (1023, 1024), (1025, 1024), (4095, 4096), (4097, 4096), (4095, 4095)]
+    cases = [(H, W, False) for H, W in shapes] + [(96, 256, True), (1023, 1024, True)]
     max_abs = max_rel = 0.0
-    for H, W in shapes:
-        x = torch.randn((H, W), generator=gen, device=dev)
+    plans = []
+    for H, W, offset in cases:
+        if offset:
+            x = torch.randn(H * W + 1, generator=gen, device=dev)[1:].view(H, W)
+        else:
+            x = torch.randn((H, W), generator=gen, device=dev)
         w = torch.randn((3, 3), generator=gen, device=dev)
-        out, ref = stencil3x3(x, w), stencil3x3_plain(x, w)
+        out, ref = ts.stencil3x3(x, w), ts.stencil3x3_plain(x, w)
         err = float((out - ref).abs().max())
         max_abs, max_rel = max(max_abs, err), max(max_rel, err / float(ref.abs().max()))
-        check(torch.equal(out, ref), f"stencil3x3 differs from plain at {H}x{W}")
+        check(torch.equal(out, ref), f"stencil3x3 differs from plain at {H}x{W}"
+                                     f"{' (offset view)' if offset else ''}")
+        p = ts.plan(H, W, x.data_ptr() % 16 == 0, sms)
+        check(not offset or p.width == 1, "stencil3x3: an unaligned view took width 4")
+        plans.append({"H": H, "W": W, "offset_view": offset, "width": p.width,
+                      "rows": p.rows, "H_mod_rows": H % p.rows})
     xq = torch.randint(-127, 128, (1024, 1024), generator=gen, device=dev, dtype=torch.int8)
     wq = torch.randint(-127, 128, (3, 3), generator=gen, device=dev, dtype=torch.int8)
     xq[0, 0] = wq[1, 1] = 127
     xp = F.pad(xq.long(), (1, 1, 1, 1))
     exact = sum(wq[p, q].long() * xp[p:p + 1024, q:q + 1024] for p in range(3) for q in range(3))
-    codes = stencil3x3(xq.float(), wq.float())
+    codes = ts.stencil3x3(xq.float(), wq.float())
     check(torch.equal(codes, exact.float()), "stencil3x3 on int8 codes is not exact")
     torch.cuda.synchronize()
-    return {"shapes": shapes, "bitwise": True, "max_abs_err": max_abs,
+    return {"cases": plans, "bitwise": True, "max_abs_err": max_abs,
             "max_rel_err": max_rel, "codes_1024x1024_exact": True}
 
 
@@ -496,11 +532,12 @@ def stencil_bound(H, W):
 
 def time_stencil(dev):
     """At 1024^2 and 4096^2, the field cold: eager means and device times (as
-    in ``time_qgemm``). Library yardstick: F.conv2d on the (1, 1, H, W)
-    field with TF32 off."""
+    in ``time_qgemm``), with the kernel's plan. Library yardstick: F.conv2d
+    on the (1, 1, H, W) field with TF32 off."""
     import itertools
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import stencil3x3 as ts
     from repro_torch.kernels.stencil3x3 import stencil3x3, stencil3x3_plain
     gen = torch.Generator(device=dev).manual_seed(10)
     w = torch.randn((3, 3), generator=gen, device=dev)
@@ -520,7 +557,8 @@ def time_stencil(dev):
         bound_ms, by = stencil_bound(n, n)
         rows.append({"H": n, "W": n, "ms": ms, "graph_ms": g_ms, "plain_ms": plain,
                      "library_ms": lib, "library_graph_ms": lib_graph,
-                     "bound_ms": bound_ms, "bound_by": by})
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "plan": plan_of(ts, n, n, True, sms_of(dev))})
     return rows
 
 
@@ -554,6 +592,34 @@ def time_qgemm_gptpu(dev):
 # ---------------------------------------------------------------- qgemv
 
 QGEMV_PAIRS = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000))
+QGEMV_ERR_RATIO = 4.0   # the kernel's fp64 error may be at most this times the plain's
+
+# check_qgemv's cases, (B, K, N, w offset by 4 bytes from an aligned base):
+# B from 1 to 16, K not a multiple of a stage, K shorter than the cluster's
+# stages (a rank with no k), weights only 4-byte aligned; on 132 SMs they
+# take every kernel variant in QGEMV_VARIANTS.
+QGEMV_CASES = [(B, K, N, False) for B, K, N in (
+    (1, 256, 256), (8, 384, 512), (3, 640, 768), (8, 2048, 256), (8, 2048, 32000),
+    (2, 2048, 2048), (1, 5632, 2048), (5, 2048, 5632), (9, 5632, 2048), (16, 2048, 256),
+    (8, 2048, 2048), (1, 2048, 5632), (2, 2048, 32000), (1, 2048, 32000),
+    (8, 1000, 512), (8, 100, 256), (2, 130, 256))] + [(8, 704, 768, True),
+                                                      (1, 704, 768, True)]
+QGEMV_VARIANTS = frozenset(
+    [f"tensor/tn{tn}" for tn in (128, 64, 32)] + [f"cores/tn{tn}" for tn in (128, 64)]
+    + ["cores/depth4", "cores/depth8"]
+    + [f"{path}/vec={v}" for path in ("tensor", "cores") for v in (True, False)])
+
+
+def qgemv_variant(p, K, w_ptr, x_ptr):
+    """The kernel variants a launch with plan ``p`` takes (csrc/qgemv.cu's
+    template arguments): its path and stripe width, its loads in flight on
+    the CUDA cores, and whether its copies are 16-byte (the tensor cores: w
+    and x 16-byte aligned, K % 4 == 0) or its weight loads a lane's whole
+    tn / 8 bytes (the CUDA cores: w that aligned)."""
+    if p.mma:
+        vec = w_ptr % 16 == 0 and x_ptr % 16 == 0 and K % 4 == 0
+        return {f"tensor/tn{p.tn}", f"tensor/vec={vec}"}
+    return {f"cores/tn{p.tn}", f"cores/depth{p.depth}", f"cores/vec={w_ptr % (p.tn // 8) == 0}"}
 
 
 def qgemv_bound(B, K, N):
@@ -567,18 +633,33 @@ def check_qgemv(dev):
     contract, tests/test_kernels.py), with TF32 off around the plain
     version's matmul (PyTorch's default; the port sets it nowhere); two
     launches on the same inputs bitwise equal; the error against an fp64
-    product beside it (max |diff| over max |product|); bad operands raise."""
+    product (max |diff| over max |product|) at most ``QGEMV_ERR_RATIO`` times
+    the plain version's at every shape. Shapes on the plan's edges: B in
+    {1, 2, 3, 5, 8, 9, 16}, K not a multiple of a stage, K shorter than the
+    cluster's stages (a rank with no k), weights only 4-byte aligned; the
+    cases must take every kernel variant in ``QGEMV_VARIANTS``. Bad operands
+    raise."""
     import torch
+    from repro_torch.kernels import qdot_serve as tqs
     from repro_torch.kernels.qdot_serve import qgemv, qgemv_plain
     gen = torch.Generator(device=dev).manual_seed(12)
-    shapes = [(1, 256, 256), (8, 384, 512), (3, 640, 768), (8, 2048, 256), (8, 2048, 32000)]
+    sms = sms_of(dev)
     rows = []
+    variants = set()
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
-    for B, K, N in shapes:
+    for B, K, N, offset in QGEMV_CASES:
         x = torch.randn((B, K), generator=gen, device=dev)
-        w = torch.randint(-128, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        if offset:
+            flat = torch.randint(-128, 128, (K * N + 4,), generator=gen, device=dev,
+                                 dtype=torch.int8)
+            w = flat[4:].view(K, N)
+        else:
+            w = torch.randint(-128, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
         w[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)    # both ends of int8
         s = torch.rand(N, generator=gen, device=dev) * 9e-3 + 1e-3
+        p = tqs.plan(B, K, N, sms)
+        variant = qgemv_variant(p, K, w.data_ptr(), x.data_ptr())
+        variants |= variant
         out = qgemv(x, w, s)
         check(torch.equal(out, qgemv(x, w, s)), f"qgemv: two launches differ at {B}x{K}x{N}")
         ref = qgemv_plain(x, w, s)
@@ -586,12 +667,18 @@ def check_qgemv(dev):
         check(torch.allclose(out, ref, rtol=2e-4, atol=1e-4),
               f"qgemv differs from plain at {B}x{K}x{N}: max abs {err}")
         exact = (x.double() @ w.double()) * s.double()
-        rows.append({"B": B, "K": K, "N": N, "max_abs_err": err,
-                     "fp64_max_err_over_abs_max": float((out.double() - exact).abs().max()
-                                                        / exact.abs().max()),
-                     "plain_fp64_max_err_over_abs_max": float(
-                         (ref.double() - exact).abs().max() / exact.abs().max())})
+        e_kernel = float((out.double() - exact).abs().max() / exact.abs().max())
+        e_plain = float((ref.double() - exact).abs().max() / exact.abs().max())
+        check(e_kernel <= QGEMV_ERR_RATIO * e_plain,
+              f"qgemv at {B}x{K}x{N}: fp64 error {e_kernel} over {QGEMV_ERR_RATIO} x "
+              f"the plain version's {e_plain}")
+        rows.append({"B": B, "K": K, "N": N, "w_offset_4": offset, "max_abs_err": err,
+                     "fp64_max_err_over_abs_max": e_kernel,
+                     "plain_fp64_max_err_over_abs_max": e_plain,
+                     "plan": p._asdict(), "variant": sorted(variant)})
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
+    check(variants == QGEMV_VARIANTS,
+          f"qgemv cases missed the kernel variants {sorted(QGEMV_VARIANTS - variants)}")
     x = torch.zeros((2, 256), device=dev)
     s = torch.ones(256, device=dev)
     flat = torch.zeros(256 * 256 + 1, dtype=torch.int8, device=dev)
@@ -609,7 +696,8 @@ def check_qgemv(dev):
         raise SmokeFailure(f"qgemv accepted a bad operand ({what})")
     check(qgemv.launches == before, "qgemv launched on a bad operand")
     torch.cuda.synchronize()
-    return {"shapes": rows, "bitwise_repeat": True, "refused": sorted(bad),
+    return {"shapes": rows, "variants": sorted(variants), "bitwise_repeat": True,
+            "refused": sorted(bad),
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
@@ -635,9 +723,11 @@ def time_qgemv(dev, qgemm_rows):
     (``graph_ms``): issued eagerly from Python the kernel's calls are
     host-bound (``eager_ms``, ``time_ms``). For information only, each row
     carries qgemm's W8A8 times at the same (M = 8, K, N) from ``time_qgemm``,
-    another function (int8 activations, bf16 out): eager and device time."""
+    another function (int8 activations, bf16 out): eager and device time;
+    and the kernel's plan (stripe width, cluster size, k range, ring depth)."""
     import itertools
     import torch
+    from repro_torch.kernels import qdot_serve as tqs
     from repro_torch.kernels.qdot_serve import qgemv, qgemv_plain
     gen = torch.Generator(device=dev).manual_seed(13)
     w8a8 = {(r["K"], r["N"]): r for r in qgemm_rows if r["M"] == 8}
@@ -655,10 +745,11 @@ def time_qgemv(dev, qgemm_rows):
             lib, lib_error = time_weight_int8pack(x, ws, s)
             bound_ms, by = qgemv_bound(B, K, N)
             row = {"B": B, "K": K, "N": N, "ms": ms, "eager_ms": eager, "plain_ms": plain,
-                   "library_ms": lib, "bound_ms": bound_ms, "bound_by": by}
+                   "library_ms": lib, "bound_ms": bound_ms, "bound_by": by,
+                   "plan": plan_of(tqs, B, K, N, sms_of(dev))}
             if lib_error is not None:
                 row["library_error"] = lib_error
-            if B == 8:
+            if B == 8 and (K, N) in w8a8:
                 row["info_only_qgemm_w8a8_M8_ms"] = w8a8[(K, N)]["ms"]
                 row["info_only_qgemm_w8a8_M8_graph_ms"] = w8a8[(K, N)]["graph_ms"]
             rows.append(row)

@@ -54,12 +54,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "qgemm_tile_scales_launch": [P, P, P, P, P, I, I, I, I, P],
     },
     "stencil3x3": {
-        # x, w, out, H, W, stream
-        "stencil3x3_launch": [P, P, P, I, I, P],
+        # x, w, out, H, W, width, rows, stream
+        "stencil3x3_launch": [P, P, P, I, I, I, I, P],
     },
     "qgemv": {
-        # x, w, scale, out, partial (nullable), B, K, N, rb, kchunk, splits, stream
-        "qgemv_launch": [P, P, P, P, P, I, I, I, I, I, I, P],
+        # x, w, scale, out, B, K, N, rb, tn, cluster, depth, stream
+        "qgemv_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
     },
 }
 
