@@ -43,19 +43,38 @@ Run from the root of a checkout. Phases, one JSON line each:
   8. decode_profile — host time of a served decode step beside the device
                 time torch.profiler sees in it, qgemm's and paged
                 attention's shares of it, and its top kernels
-  9. gptpu    — the GPTPU library path: the card's instruction table and
+  9. stores   — the serve traffic through the contiguous store, the paged
+                gather bridge and block-native decode without the kernel:
+                tokens and every valid cache entry bitwise equal, qgemm 155
+                launches per forward and no paged-attention launch on each;
+                the kernel route held to the plain one by check_reference's
+                rule at f32
+ 10. int8_kv  — the same with the int8 KV cache through those three routes
+                and the kernel route (which attends by the plain
+                contraction: no paged-attention launch); the quantizer's
+                codes and scales card against CPU, bitwise
+ 11. chunked  — prompts of 1536 and 1900 tokens admitted by 256-token
+                chunks and by single-shot fused prefill: first tokens, the
+                seeded pool and the decoded tokens bitwise, and each
+                admission's peak device memory
+ 12. prefix_cache — the serve traffic with a shared half-prompt preamble,
+                with and without the prefix radix cache: tokens bitwise,
+                hits, reused blocks and positions, TTFT, launches, and
+                every block free or cached unreferenced after draining
+ 13. gptpu    — the GPTPU library path: the card's instruction table and
                 the tpuGemm lowering it picks, tpuGemm at 4096^3 in both
                 lowerings against an fp64 product, the seven applications
                 at n = 1024 (quantized) under the paper's Table-4 limits and
                 hotspot3d's fp path, with each kernel's launches read around
                 each call and checked where the path fixes them
- 10. gptpu_reference — the applications on the card against the same
+ 14. gptpu_reference — the applications on the card against the same
                 applications on the CPU through the plain versions
- 11. gptpu_profile — each application's host wall time beside the device
+ 15. gptpu_profile — each application's host wall time beside the device
                 time torch.profiler sees in it, and its top kernels
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
-launches on the three paths: serve, gptpu and ops; ``ms`` and
+launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
+gptpu and ops; ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -806,18 +825,8 @@ def check_batch_invariance(reqs):
     one slot built as ``serve.run`` builds its own (same weights, same
     prompt), must get the tokens it got in the batched run: there every
     decode step ran the 8 slots (qgemm at M = 8), here 1 (M = 1)."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core import tensorizer as tz
-    from repro_torch.launch import serve
-    from repro_torch.models import init_model
     from repro_torch.serving.engine import Engine, EngineConfig
-    args = serve.build_parser().parse_args(SERVE_ARGS)
-    cfg = get_config(args.arch)
-    cfg = (cfg.smoke() if args.smoke else cfg).replace(quantize=args.quantize)
-    gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = tz.quantize_params(init_model(cfg, gen, device=args.device),
-                                predicate=serve.quant_predicate)
+    cfg, params, _, args = serve_setup()
     engine = Engine(cfg, params, EngineConfig(
         max_slots=1, max_queue=args.max_queue, max_seq_len=args.prompt_len + args.gen,
         cache_backend=args.cache_backend, block_size=args.block_size,
@@ -838,18 +847,19 @@ def check_batch_invariance(reqs):
             "same_tokens": True, "wall_s": time.perf_counter() - t0}
 
 
-def _prefill_then_decode(params, cfg, tokens, n_steps, feed=None):
+def _prefill_then_decode(params, cfg, tokens, n_steps, feed=None, use_kernel=True):
     """Prefill ``tokens`` (B, P) through the port's fused admission step,
     seed a paged store with the K/V, and run ``n_steps`` block-native decode
-    steps, feeding each step's greedy tokens (or ``feed[i]``). Returns the
-    prefill logits, each decode step's logits, and the fed tokens."""
+    steps (through the paged-attention kernel with ``use_kernel``), feeding
+    each step's greedy tokens (or ``feed[i]``). Returns the prefill logits,
+    each decode step's logits, and the fed tokens."""
     import torch
     from repro_torch.models import serve as SV
     from repro_torch.serving.store import PagedKVStore
     B, P = tokens.shape
     dev = tokens.device
     store = PagedKVStore(cfg, B, P + 16 * ((n_steps + 15) // 16 + 1),
-                         block_size=16, device=dev)
+                         block_size=16, native=True, device=dev)
     for b in range(B):
         check(store.lease(b, P, n_steps + 1), "lease refused")
     logits, kv = SV.prefill_with_cache(params, cfg, tokens)
@@ -860,7 +870,8 @@ def _prefill_then_decode(params, cfg, tokens, n_steps, feed=None):
         if feed is not None:
             toks = feed[i].to(dev)
         fed.append(toks.cpu())
-        out, cache = SV.decode_paged(params, cfg, store.decode_cache(), toks)
+        out, cache = SV.decode_paged(params, cfg, store.decode_cache(), toks,
+                                     use_kernel=use_kernel)
         store.swap(cache)
         steps.append(out[:, -1])
         toks = out[:, -1].float().argmax(-1).to(torch.int32)[:, None]
@@ -937,7 +948,7 @@ def profile_decode():
                                 predicate=quant_predicate)
     B, P, n = 8, 128, 8
     tokens = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(6))
-    store = PagedKVStore(cfg, B, P + 32, block_size=16, device="cuda")
+    store = PagedKVStore(cfg, B, P + 32, block_size=16, native=True, device="cuda")
     for b in range(B):
         store.lease(b, P, 32)
     _, kv = SV.prefill_with_cache(params, cfg, tokens.cuda())
@@ -985,6 +996,299 @@ def device_time(prof, n, k, name=""):
     busy_ms = sum(dev_us(e) for e in events) / 1e3 / n
     top = sorted(events, key=dev_us, reverse=True)[:k]
     return busy_ms, [[e.key[:60], dev_us(e) / 1e3 / n] for e in top]
+
+
+# ------------------------------------------------- the other serving routes
+
+# EngineConfig fields of the SlotStore routes beside the main path's
+ROUTES = {
+    "contiguous": {"cache_backend": "contiguous"},
+    "bridge": {"cache_backend": "paged"},
+    "native_plain": {"cache_backend": "paged", "paged_native": True},
+    "native_kernel": {"cache_backend": "paged", "paged_native": True,
+                      "paged_kernel": True},
+}
+CLEAR_MARGIN = 0.3     # check_reference's clear top-2 margin
+
+
+def serve_setup(**replace):
+    """The serve phase's model, weights and prompts, as serve.run builds
+    them from SERVE_ARGS (``replace``: config fields to change)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tensorizer as tz
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    cfg = get_config(args.arch)
+    cfg = (cfg.smoke() if args.smoke else cfg).replace(quantize=args.quantize, **replace)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    params = tz.quantize_params(init_model(cfg, gen, device=args.device),
+                                predicate=serve.quant_predicate)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (args.requests, args.prompt_len), dtype=np.int32)
+    return cfg, params, prompts, args
+
+
+def drive(cfg, params, prompts, args, **ecfg_kw):
+    """serve.run's traffic (a request every ``--stagger-steps`` engine
+    steps) through an Engine with ``ecfg_kw``, every kernel's launches
+    counted from 0. Returns the requests, the engine's stats, the launches,
+    the wall time and the contiguous view of the cache once every request
+    was submitted."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    engine = Engine(cfg, params, EngineConfig(**{
+        "max_slots": args.slots, "max_queue": args.max_queue,
+        "max_seq_len": args.prompt_len + args.gen, "block_size": args.block_size,
+        **ecfg_kw}), device=args.device)
+    decode_s = []
+    decode_once = engine._decode_once
+
+    def timed_decode():
+        t = time.perf_counter()
+        decode_once()
+        decode_s.append(time.perf_counter() - t)
+    engine._decode_once = timed_decode
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        reqs = []
+        for p in prompts:
+            reqs.append(engine.submit(p, args.gen, strict=True))
+            for _ in range(args.stagger_steps):
+                engine.step()
+        view = {n: t.clone() for n, t in engine.store.gather_view().items()}
+        engine.run_until_complete()
+    finally:
+        engine.close()
+    wall = time.perf_counter() - t0
+    return (reqs, engine.stats(), {k: c.launches for k, c in counters.items()},
+            wall, view, engine.store, decode_s)
+
+
+def per_forward(cfg):
+    """qgemm launches per forward of one token position block: q, k, v, o,
+    wi, wg, wo in every layer, plus the lm_head."""
+    return 7 * cfg.n_layers + 1
+
+
+def check_route_launches(name, cfg, stats, launches, paged):
+    forwards = stats["decode_steps"] + stats["prefill_batches"]
+    check(launches["qgemm"] == per_forward(cfg) * forwards,
+          f"{name}: qgemm launched {launches['qgemm']} times, expected "
+          f"{per_forward(cfg)} x {forwards} forwards")
+    want = stats["decode_steps"] * cfg.n_layers if paged else 0
+    check(launches["paged_decode_attention"] == want,
+          f"{name}: paged attention launched {launches['paged_decode_attention']} "
+          f"times, expected {want}")
+
+
+def same_valid_entries(name, a, b, index):
+    """``a`` and ``b`` (contiguous views) bitwise equal on every slot's
+    positions below its index."""
+    import torch
+    for slot, n in enumerate(index.tolist()):
+        for leaf in a:
+            if leaf != "index":
+                check(torch.equal(a[leaf][:, slot, :n], b[leaf][:, slot, :n]),
+                      f"{name}: cache leaf {leaf} of slot {slot} differs")
+
+
+def serve_routes(cfg, params, prompts, args, routes, timed_only=()):
+    """The serve traffic through each route of ``routes`` and
+    ``timed_only``: tokens bitwise equal across ``routes``, the cache views
+    equal on every valid position, qgemm's launches 155 per forward and
+    paged attention's 22 per decode step on the float-KV kernel route only,
+    0 elsewhere; each route's decode step times."""
+    import numpy as np
+    runs, out = {}, {}
+    for route in list(routes) + list(timed_only):
+        reqs, stats, launches, wall, view, _, decode_s = drive(
+            cfg, params, prompts, args, **ROUTES[route])
+        check(all(r.done and len(r.tokens) == args.gen for r in reqs),
+              f"{route}: a request did not finish")
+        check_route_launches(route, cfg, stats, launches,
+                             ROUTES[route].get("paged_kernel", False)
+                             and cfg.kv_cache_dtype != "int8")
+        runs[route] = ([r.tokens for r in reqs], view)
+        out[route] = {"decode_steps": stats["decode_steps"],
+                      "prefill_batches": stats["prefill_batches"], "wall_s": wall,
+                      "decode_step_ms_mean": 1e3 * float(np.mean(decode_s)),
+                      "decode_step_ms_median": 1e3 * float(np.median(decode_s)),
+                      "sustained_tok_s": stats["sustained_tok_s"],
+                      "launches": launches,
+                      "decode_view_bytes": stats["cache"].get("decode_view_bytes", 0),
+                      "cache_bytes": stats["cache"]["bytes"]}
+    first = routes[0]
+    for route in routes[1:]:
+        if runs[route][0] != runs[first][0]:
+            i = next(i for i, (x, y) in enumerate(zip(runs[route][0], runs[first][0]))
+                     if x != y)
+            raise SmokeFailure(f"{route} gave other tokens than {first} (request {i})")
+        same_valid_entries(f"{route} vs {first}", runs[route][1], runs[first][1],
+                           runs[first][1]["index"])
+    return out
+
+
+def kernel_vs_plain_route(cfg, params, prompts, args):
+    """The kernel route held to native-plain by check_reference's rule, at
+    the f32 compute dtype: the serve prompts prefilled and decoded
+    ``n_steps`` steps by both routes, each fed the plain route's greedy
+    tokens; the kernel's greedy token must equal the plain route's wherever
+    the plain route's top-2 margin exceeds CLEAR_MARGIN."""
+    import torch
+    cfg = cfg.replace(dtype="float32")
+    n_steps = args.gen
+    tokens = torch.as_tensor(prompts, device=args.device)
+    _, plain, fed = _prefill_then_decode(params, cfg, tokens, n_steps, use_kernel=False)
+    _, kern, _ = _prefill_then_decode(params, cfg, tokens, n_steps, feed=fed)
+    compared, max_diff = 0, 0.0
+    for i, (k, p) in enumerate(zip(kern, plain)):
+        k, p = k.float(), p.float()
+        top2 = p.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > CLEAR_MARGIN
+        check(torch.equal(k.argmax(-1)[clear], p.argmax(-1)[clear]),
+              f"kernel and plain routes pick different clear tokens at step {i}")
+        compared += int(clear.sum())
+        max_diff = max(max_diff, float((k - p).abs().max()))
+    return {"dtype": "float32", "steps": n_steps, "clear_tokens_compared": compared,
+            "of": n_steps * tokens.shape[0], "max_abs_logit_diff": max_diff}
+
+
+def check_stores():
+    """The serve traffic through the contiguous store, the paged gather
+    bridge and block-native decode without the kernel: bitwise the same
+    tokens and cache entries, no paged-attention launch; the kernel route
+    too, for its step times beside theirs; then the kernel route held to the
+    plain one (f32)."""
+    cfg, params, prompts, args = serve_setup()
+    out = serve_routes(cfg, params, prompts, args,
+                       ["contiguous", "bridge", "native_plain"], timed_only=["native_kernel"])
+    out["kernel_vs_plain"] = kernel_vs_plain_route(cfg, params, prompts, args)
+    return out
+
+
+def check_int8_kv():
+    """The serve traffic with the int8 KV cache through all four routes:
+    bitwise the same tokens and cache entries, and no paged-attention launch
+    (int8 KV attends by the plain contraction on every route, as in the
+    JAX package). Then the quantizer on the card against the CPU: the
+    int8 codes and scales of a 16-token prefill's K/V, bitwise."""
+    import torch
+    from repro_torch.models import attention as A, serve as SV
+    cfg, params, prompts, args = serve_setup(kv_cache_dtype="int8")
+    out = serve_routes(cfg, params, prompts, args, list(ROUTES))
+    _, kv = SV.prefill_with_cache(params, cfg.replace(kv_cache_dtype="bfloat16"),
+                                  torch.as_tensor(prompts[:2, :16], device=args.device))
+    card = A._quantize_kv(kv["k"], kv["v"])
+    cpu = A._quantize_kv(kv["k"].cpu(), kv["v"].cpu())
+    for name, g, c in zip(("k_q", "v_q", "k_scale", "v_scale"), card, cpu):
+        check(torch.equal(g.cpu(), c), f"int8 KV {name} on the card differs from the CPU's")
+    # what a Python-scalar divisor would have done on the card
+    amax = kv["k"].float().abs().amax(-1)
+    out["quantize_card_vs_cpu"] = {
+        "entries": int(card[0].numel()), "scales": int(card[2].numel()), "bitwise": True,
+        "scales_off_with_python_scalar_divisor": int(
+            ((amax / 127.0 + 1e-12).cpu() != (amax.cpu() / 127.0 + 1e-12)).sum())}
+    return out
+
+
+CHUNK_PROMPTS = (1536, 1900)
+CHUNK_GEN = 16
+CHUNK_SEQ = 2048
+CHUNK_W = 256
+
+
+def check_chunked():
+    """Two long prompts (1536 and 1900 tokens, tinyllama's 2048-token
+    context) admitted through the chunked scan (256-token chunks) and
+    through single-shot fused prefill, paged native with the kernel: first
+    tokens, the seeded pool (every valid position) and the decoded tokens
+    bitwise equal; each admission's peak device memory."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, params, _, args = serve_setup()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, (n,), dtype=np.int32) for n in CHUNK_PROMPTS]
+    runs, out = {}, {}
+    for name, kw in (("fused", {}), ("chunked", {"prefill_chunk": CHUNK_W})):
+        engine = Engine(cfg, params, EngineConfig(
+            max_slots=2, max_seq_len=CHUNK_SEQ, cache_backend="paged",
+            paged_native=True, paged_kernel=True, **kw), device=args.device)
+        try:
+            reqs = [engine.submit(p, CHUNK_GEN, strict=True) for p in prompts]
+            counters = all_counters()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            engine._admit()
+            torch.cuda.synchronize()
+            admit_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            view = {n: t.clone() for n, t in engine.store.gather_view().items()}
+            engine.run_until_complete()
+            stats = engine.stats()
+        finally:
+            engine.close()
+        runs[name] = ([r.tokens for r in reqs], view)
+        out[name] = {"admission_peak_bytes": peak, "admission_peak_over_before_bytes": peak - before,
+                     "admission_wall_s": admit_s, "flags": stats["opq"]["flags"],
+                     "launches": {k: c.launches for k, c in counters.items()}}
+    check(runs["chunked"][0] == runs["fused"][0], "chunked prefill gave other tokens "
+          f"than fused: {runs['chunked'][0]} vs {runs['fused'][0]}")
+    same_valid_entries("chunked vs fused", runs["chunked"][1], runs["fused"][1],
+                       runs["fused"][1]["index"])
+    check(any(f.startswith("prefill_chunked/") for f in out["chunked"]["flags"]),
+          "no chunked admission")
+    out["tokens_compared"] = sum(len(t) for t in runs["fused"][0])
+    return out
+
+
+def check_prefix_cache():
+    """The serve traffic with the half-prompt preamble of ``--prefix-cache``,
+    with and without the cache (paged native, kernel): tokens bitwise,
+    hits counted, 7 suffix admissions, qgemm 155 launches per forward (a
+    suffix prefill is one pass), and after draining every block free or
+    cached with refcount 0."""
+    import numpy as np
+    cfg, params, prompts, args = serve_setup()
+    half = args.prompt_len // 2
+    prompts[:, :half] = prompts[0, :half]
+    route = ROUTES["native_kernel"]
+    cold = drive(cfg, params, prompts, args, **route)
+    hot = drive(cfg, params, prompts, args, prefix_cache=True, **route)
+    check([r.tokens for r in hot[0]] == [r.tokens for r in cold[0]],
+          "the prefix cache changed the tokens")
+    stats, launches, store = hot[1], hot[2], hot[5]
+    cold_stats = cold[1]
+    census = store.debug_block_census()
+    check(census["referenced"] == [] and sorted(census["free"] + census["cached_unreferenced"])
+          == list(range(1, store.n_blocks)), f"blocks held after draining: {census}")
+    check(stats["prefix_hits"] == args.requests - 1, f"{stats['prefix_hits']} prefix hits")
+    flags = stats["opq"]["flags"]
+    check(flags.get(f"prefill_prefix/{args.prompt_len}") == args.requests - 1,
+          f"prefix cache: suffix admissions {flags}")
+    # a suffix admission is one pass of the layer stack, like a fused one
+    check_route_launches("prefix_cache", cfg, stats, launches, paged=True)
+    def ttft_ms(reqs):
+        return 1e3 * float(np.mean([r.metrics.ttft_s for r in reqs]))
+    return {"prefix_hits": stats["prefix_hits"],
+            "prefix_blocks_reused": stats["prefix_blocks_reused"],
+            "prefix_tokens_reused": stats["prefix_tokens_reused"],
+            "prefill_chunks": stats["prefill_chunks"], "flags": flags,
+            "mean_ttft_ms_hot": ttft_ms(hot[0]), "mean_ttft_ms_cold": ttft_ms(cold[0]),
+            "prefill_wait_s_hot": stats["prefill_wait_s"],
+            "prefill_wait_s_cold": cold_stats["prefill_wait_s"],
+            "wall_s_hot": hot[3], "wall_s_cold": cold[3],
+            "cache": stats["cache"], "census_after_drain": {k: len(v) for k, v in census.items()},
+            "launches": launches}
 
 
 # ------------------------------------------------------ the GPTPU path
@@ -1290,6 +1594,14 @@ def main() -> int:
         phase("batch_invariance", **check_batch_invariance(reqs))
         phase("reference", **check_reference())
         phase("decode_profile", card=card, **profile_decode())
+        stores = check_stores()
+        phase("stores", card=card, **stores)
+        int8_kv = check_int8_kv()
+        phase("int8_kv", card=card, **int8_kv)
+        chunked = check_chunked()
+        phase("chunked", card=card, **chunked)
+        prefix = check_prefix_cache()
+        phase("prefix_cache", card=card, **prefix)
         gptpu = check_gptpu(dev)
         phase("gptpu", card=card, **gptpu)
         phase("gptpu_reference", lowering=gptpu["lowering"],
@@ -1301,7 +1613,14 @@ def main() -> int:
         return 1
     decode = next(r for r in q_rows if (r["M"], r["K"], r["N"]) == (8, 2048, 5632))
     gemv = next(r for r in v_rows if (r["B"], r["K"], r["N"]) == (8, 2048, 5632))
-    by_path = {"serve": launches, "gptpu": gptpu["launches"], "ops": ops_launches}
+    def summed(*runs):
+        return {k: sum(r["launches"][k] for r in runs) for k in launches}
+    by_path = {"serve": launches,
+               "stores": summed(*(v for k, v in stores.items() if k in ROUTES)),
+               "int8_kv": summed(*(v for k, v in int8_kv.items() if k in ROUTES)),
+               "chunked": summed(chunked["fused"], chunked["chunked"]),
+               "prefix_cache": prefix["launches"],
+               "gptpu": gptpu["launches"], "ops": ops_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape
 

@@ -5,6 +5,14 @@ continuous-batching engine with the Tensorizer W8A8 path.
         --cache-backend paged --paged-native --paged-kernel \\
         --requests 8 --prompt-len 128 --gen 32 --slots 8 --stagger-steps 2
 
+``--cache-backend contiguous`` leases per-slot rows sized to the sequence
+budget; ``paged`` leases blocks from a pool, decoded through the gather
+bridge, or block-natively with ``--paged-native`` (plain torch) and
+``--paged-kernel`` (the paged-attention kernel). ``--prefill-chunk W``
+admits buckets wider than W by the chunked scan; ``--prefix-cache`` (paged)
+keeps the shared-prefix radix cache, and every request then opens with the
+same half-prompt preamble, a shared system prompt.
+
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions (use ``--smoke`` there: full width is 1.1B parameters). Weights are
 random, drawn from a ``torch.Generator`` seeded with ``--seed``. The report
@@ -51,17 +59,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stagger-steps", type=int, default=0,
                     help="engine steps between request arrivals (0 = all at once)")
     ap.add_argument("--cache-backend", default="auto",
-                    choices=["auto", "contiguous", "paged", "recurrent"],
-                    help="SlotStore backend; the port serves 'paged'")
+                    choices=["auto", "contiguous", "paged"],
+                    help="SlotStore backend (auto: contiguous for dense archs)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged backend: tokens per KV block")
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="paged backend: pool size in blocks (0 = full capacity)")
     ap.add_argument("--paged-native", action="store_true",
-                    help="block-native decode over the pool (required by the port)")
+                    help="paged backend: block-native decode over the pool "
+                         "(no gather-bridge view)")
     ap.add_argument("--paged-kernel", action="store_true",
-                    help="with --paged-native: the paged-attention kernel "
-                         "(required by the port)")
+                    help="with --paged-native: attend through the paged-attention "
+                         "kernel (float KV)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill width W: buckets wider than W admit "
+                         "through W-token chunks (0 = single-shot only)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged backend: shared-prefix radix cache; the "
+                         "synthetic prompts share a half-prompt preamble")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weight generator and the prompts")
     ap.add_argument("--device", default=None,
@@ -81,6 +96,8 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
         ap.error("--paged-native/--paged-kernel require --cache-backend paged")
     if args.paged_kernel and not args.paged_native:
         ap.error("--paged-kernel requires --paged-native")
+    if args.prefix_cache and args.cache_backend != "paged":
+        ap.error("--prefix-cache requires --cache-backend paged")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)
@@ -98,12 +115,17 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len),
                            dtype=np.int32)
+    if args.prefix_cache:
+        # hot-prefix traffic: every request opens with the same half-prompt
+        # preamble, so all but the first admission walk onto cached blocks
+        prompts[:, :args.prompt_len // 2] = prompts[0, :args.prompt_len // 2]
     ecfg = EngineConfig(
         max_slots=args.slots, max_queue=args.max_queue,
         max_seq_len=args.prompt_len + args.gen,
         cache_backend=args.cache_backend, block_size=args.block_size,
         n_blocks=args.n_blocks or None,
-        paged_native=args.paged_native, paged_kernel=args.paged_kernel)
+        paged_native=args.paged_native, paged_kernel=args.paged_kernel,
+        prefill_chunk=args.prefill_chunk or None, prefix_cache=args.prefix_cache)
     engine = Engine(cfg, params, ecfg, device=device)
     try:
         requests = []
@@ -134,6 +156,11 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
           f"batched seed writes {s['seed_write_s']*1e3:.1f} ms | "
           f"0 replay decodes | "
           f"{s['admissions_deferred']} deferred (backpressure)", flush=True)
+    if args.prefix_cache:
+        print(f"[serve] prefix cache: {s['prefix_hits']} hits | "
+              f"{s['prefix_blocks_reused']} blocks reused | "
+              f"{s['prefix_tokens_reused']} prompt positions skipped | "
+              f"{s['prefill_chunks']} prefill chunks computed", flush=True)
     print(f"[serve] cache: {format_memory_stats(s['cache'])}", flush=True)
     o = s["opq"]
     print(f"[serve] opq: {o['issued']} instructions | "

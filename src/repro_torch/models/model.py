@@ -94,21 +94,34 @@ def forward(params: Dict, cfg: ArchConfig,
     """Full-sequence forward over right-padded prompts ``tokens`` (B, S): the
     reference's ``forward(return_kv=True)``, the fused serving admission.
     Returns ``(logits, kv)``: logits (B, S, V_pad) and the per-layer K/V in
-    decode-cache layout, {"k", "v": (L, B, S, KV, hd)}."""
+    decode-cache layout, {"k", "v": (L, B, S, KV, hd)} plus
+    {"k_scale", "v_scale": (L, B, S, KV)} with the int8 KV cache."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    int8_kv = cfg.kv_cache_dtype == "int8"
+    names = kv_names(cfg)
     x = embed_tokens(params, cfg, tokens)
-    ks, vs = [], []
+    entries = []
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         h = L.apply_norm(lp["ln1"], x, cfg)
-        o, k, v = A.prefill_attention_with_kv(lp["attn"], h, cfg, positions=positions)
+        o, *kv = A.prefill_attention_with_kv(lp["attn"], h, cfg, positions=positions,
+                                             int8_kv=int8_kv)
         x = x + o
         h = L.apply_norm(lp["ln2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], h, cfg)
-        ks.append(k)
-        vs.append(v)
-    return _logits(params, cfg, x), {"k": torch.stack(ks), "v": torch.stack(vs)}
+        entries.append(kv)
+    return _logits(params, cfg, x), {n: torch.stack([e[j] for e in entries])
+                                     for j, n in enumerate(names)}
+
+
+def kv_names(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The K/V cache leaves of ``cfg``: k, v, and the int8 KV cache's scales."""
+    if cfg.kv_cache_dtype == "int8":
+        return ("k", "v", "k_scale", "v_scale")
+    if cfg.kv_cache_dtype != "bfloat16":
+        raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: expected bfloat16 or int8")
+    return ("k", "v")
 
 
 def count_qtensors(params) -> int:

@@ -7,4 +7,6 @@ from repro_torch.serving.metrics import (  # noqa: F401
     EngineMetrics, RequestMetrics, format_memory_stats,
 )
 from repro_torch.serving.scheduler import Scheduler, bucket_for, default_buckets  # noqa: F401
-from repro_torch.serving.store import PagedKVStore, pristine_value  # noqa: F401
+from repro_torch.serving.store import (  # noqa: F401
+    ContiguousKVStore, PagedKVStore, SlotStore, make_store, pristine_value,
+)

@@ -1,15 +1,20 @@
 """Continuous-batching inference engine over the OPQ runtime — the port of
 ``repro.serving.engine`` for the slice it serves: greedy decode of a dense
-model, admitted by fused prefill-with-cache, decoded block-natively on the
-paged KV pool through the paged-attention kernel.
+model, float or int8 KV, through every SlotStore route of the reference
+(contiguous rows; the paged pool through the gather bridge, block-natively
+in plain torch, or block-natively through the paged-attention kernel), with
+chunked prefill for long prompts and the shared-prefix radix cache.
 
 Requests enter a bounded FIFO (admission control); a slot scheduler joins
 them into a fixed-width in-flight decode batch and retires them as they
-finish, with no full-batch barrier. Admission is one bucketed prefill forward
-per bucket batch (first token + per-layer K/V in cache layout) and one
-batched write into the leased blocks. Every device step is an OPQ
-instruction, so buffer affinity and backup re-issue apply to serving
-traffic; the per-flag instruction counts are the dispatch audit trail.
+finish, with no full-batch barrier. Admission is one bucketed prefill
+dispatch per bucket batch (first token + per-layer K/V in cache layout) and
+one batched write into the leased slots: the fused single-shot step, the
+chunked scan for buckets wider than ``prefill_chunk``, or, for prefix-cache
+hits, the suffix scan over the chunks the cached prefix does not cover.
+Every device step is an OPQ instruction, so buffer affinity and backup
+re-issue apply to serving traffic; the per-flag instruction counts are the
+dispatch audit trail.
 
 Decode is greedy and batch-invariant: every slot computes the math of a
 single-request decode at its own position (per-row activation scales,
@@ -32,7 +37,7 @@ from repro_torch.core.opq import OPQ, Buffer
 from repro_torch.models import steps as ST
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics, now
 from repro_torch.serving.scheduler import Scheduler, default_buckets
-from repro_torch.serving.store import PagedKVStore
+from repro_torch.serving.store import SlotStore, make_store
 
 
 class RequestState(enum.Enum):
@@ -62,11 +67,11 @@ class Request:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Per-engine serving knobs, the JAX package's fields. This port serves
-    ``cache_backend="paged"`` with ``paged_native=True`` and
-    ``paged_kernel=True``; the other options raise a ValueError naming the
-    ROADMAP item that ports them. See ``repro.serving.engine.EngineConfig``
-    for each field's meaning."""
+    """Per-engine serving knobs, the JAX package's fields; see
+    ``repro.serving.engine.EngineConfig`` for each field's meaning. The port
+    serves every field but ``speculative``/``spec_k``/``draft``, which raise
+    a ValueError naming the ROADMAP item that ports them, and
+    ``cache_backend="recurrent"`` (item 11)."""
 
     max_slots: int = 4
     max_queue: int = 64
@@ -86,33 +91,52 @@ class EngineConfig:
     draft: Optional[ArchConfig] = None
 
 
-def _check_ported(cfg: ArchConfig, ecfg: EngineConfig) -> None:
+def _check_config(cfg: ArchConfig, ecfg: EngineConfig) -> None:
+    """The reference's construction checks, and the options still to port."""
     if cfg.family != "dense" or cfg.input_mode != "tokens":
         raise ValueError(
             f"the port serves token-input dense archs, got family={cfg.family} "
             f"input_mode={cfg.input_mode} (other families: ROADMAP queue 1 item 11)")
-    if ecfg.cache_backend != "paged":
-        raise ValueError(
-            f"cache_backend={ecfg.cache_backend!r} is not ported: the port serves "
-            f"cache_backend='paged' (contiguous and recurrent stores: ROADMAP "
-            f"queue 1 item 7)")
-    if not ecfg.paged_native:
-        raise ValueError(
-            "paged_native=False (the gather-bridge decode) is not ported: set "
-            "paged_native=True (ROADMAP queue 1 item 7)")
-    if not ecfg.paged_kernel:
-        raise ValueError(
-            "paged_kernel=False is not ported: block-native decode runs through "
-            "the paged-attention kernel, set paged_kernel=True (ROADMAP queue 1 item 7)")
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise ValueError("int8 KV cache is not ported (ROADMAP queue 1 item 9)")
-    if ecfg.prefill_chunk:
-        raise ValueError("prefill_chunk (chunked prefill) is not ported "
-                         "(ROADMAP queue 1 item 9)")
-    if ecfg.prefix_cache:
-        raise ValueError("prefix_cache is not ported (ROADMAP queue 1 item 9)")
     if ecfg.speculative or ecfg.draft is not None:
         raise ValueError("speculative decode is not ported (ROADMAP queue 1 item 9)")
+    if ecfg.paged_kernel and not ecfg.paged_native:
+        raise ValueError("paged_kernel requires paged_native=True")
+    if ecfg.paged_native and ecfg.cache_backend != "paged":
+        raise ValueError(f"paged_native requires cache_backend='paged', got "
+                         f"{ecfg.cache_backend!r}")
+    if ecfg.prefix_cache and ecfg.cache_backend != "paged":
+        raise ValueError(f"prefix_cache (shared-prefix radix cache) requires "
+                         f"cache_backend='paged', got {ecfg.cache_backend!r}")
+
+
+def _buckets(ecfg: EngineConfig) -> Tuple[Tuple[int, ...], frozenset]:
+    """The prefill buckets and the subset admitted by the chunked scan. With
+    ``prefill_chunk`` W, buckets at most W wide keep the fused step and the
+    rest become multiples of W up to ``max_seq_len``, which lifts the
+    admissible prompt length past the widest fused bucket."""
+    buckets = ecfg.buckets or default_buckets(ecfg.max_seq_len)
+    chunk = ecfg.prefill_chunk
+    chunked: Tuple[int, ...] = ()
+    if chunk:
+        if not 1 <= chunk <= ecfg.max_seq_len:
+            raise ValueError(f"prefill_chunk {chunk} must be in [1, max_seq_len "
+                             f"{ecfg.max_seq_len}]")
+        fused = tuple(b for b in buckets if b <= chunk)
+        chunked = tuple(k * chunk for k in range(1, ecfg.max_seq_len // chunk + 1)
+                        if k * chunk > max(fused, default=0))
+        buckets = tuple(sorted(set(fused) | set(chunked)))
+    if max(buckets) > ecfg.max_seq_len:
+        raise ValueError(
+            f"largest prefill bucket {max(buckets)} exceeds "
+            f"max_seq_len {ecfg.max_seq_len} (the slot-row length)")
+    if ecfg.prefix_cache:
+        bad = [b for b in buckets if b % ecfg.block_size]
+        if bad:
+            # the suffix scan runs block-size-wide chunks: a bucket must be a
+            # whole number of them to resume mid-prompt
+            raise ValueError(f"prefix_cache requires block_size {ecfg.block_size} "
+                             f"to divide every prefill bucket (got {bad})")
+    return tuple(buckets), frozenset(chunked)
 
 
 class _Ready:
@@ -134,7 +158,7 @@ class Engine:
 
         engine = Engine(cfg, params, EngineConfig(max_slots=4, max_seq_len=64,
                         cache_backend="paged", paged_native=True,
-                        paged_kernel=True))
+                        paged_kernel=True, prefix_cache=True))
         engine.submit(prompt_ids, max_new_tokens=16)
         done = engine.run_until_complete()
 
@@ -145,19 +169,24 @@ class Engine:
                  *, device=None, opq: Optional[OPQ] = None):
         self.cfg = cfg
         self.ecfg = engine_cfg or EngineConfig()
-        _check_ported(cfg, self.ecfg)
+        _check_config(cfg, self.ecfg)
         self.device = resolve_device(device)
-        buckets = self.ecfg.buckets or default_buckets(self.ecfg.max_seq_len)
-        if max(buckets) > self.ecfg.max_seq_len:
-            raise ValueError(
-                f"largest prefill bucket {max(buckets)} exceeds "
-                f"max_seq_len {self.ecfg.max_seq_len} (the slot-row length)")
+        buckets, self._chunked_buckets = _buckets(self.ecfg)
         self.scheduler = Scheduler(self.ecfg.max_slots, buckets)
-        self.store = PagedKVStore(cfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
-                                  block_size=self.ecfg.block_size,
-                                  n_blocks=self.ecfg.n_blocks, device=self.device)
+        self.store: SlotStore = make_store(
+            cfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
+            backend=self.ecfg.cache_backend, block_size=self.ecfg.block_size,
+            n_blocks=self.ecfg.n_blocks, native=self.ecfg.paged_native,
+            prefix_cache=self.ecfg.prefix_cache, device=self.device)
         self._prefill = ST.make_prefill_with_cache_step(cfg)
-        self._decode = ST.make_paged_decode_step(cfg)
+        chunk = self.ecfg.prefill_chunk
+        self._prefill_chunked = ST.make_chunked_prefill_step(cfg, chunk) if chunk else None
+        # the suffix of a prefix-cache hit runs in one piece, or in pieces
+        # of prefill_chunk when that bounds the score memory
+        self._prefill_suffix = (ST.make_suffix_prefill_step(cfg, self.ecfg.block_size, chunk)
+                                if self.ecfg.prefix_cache else None)
+        self._decode = (ST.make_paged_decode_step(cfg, use_kernel=self.ecfg.paged_kernel)
+                        if self.ecfg.paged_native else ST.make_decode_step(cfg))
         self._owns_opq = opq is None and self.ecfg.use_opq
         self.opq = ((OPQ([self.device]) if self._owns_opq else opq)
                     if self.ecfg.use_opq else None)
@@ -221,25 +250,44 @@ class Engine:
     # ----------------------------------------------------------- engine step
 
     def _try_lease(self, slot: int, req: Request) -> bool:
-        """Reserve blocks before the scheduler commits the slot; False (pool
-        dry) leaves the request at the queue head — backpressure. Deferral
-        is counted once per request."""
-        ok = self.store.lease(slot, len(req.prompt), req.max_new_tokens)
+        """Reserve store capacity before the scheduler commits the slot;
+        False (pool dry) leaves the request at the queue head — backpressure.
+        Deferral is counted once per request. With the prefix cache the
+        lease walks the trie with the prompt, and a hit is counted here."""
+        ok = self.store.lease(slot, len(req.prompt), req.max_new_tokens,
+                              tokens=req.prompt if self.ecfg.prefix_cache else None)
         if not ok:
             if req.id not in self._deferred_ids:
                 self._deferred_ids.add(req.id)
                 self.metrics.admissions_deferred += 1
             return ok
         self._deferred_ids.discard(req.id)
+        if self.ecfg.prefix_cache:
+            info = self.store.prefix_lease_info(slot)
+            if info["hit"]:
+                self.metrics.prefix_hits += 1
+                self.metrics.prefix_blocks_reused += info["shared_blocks"]
+                self.metrics.prefix_tokens_reused += info["prefill_start"]
         return ok
 
+    def _prefix_group_key(self, slot: int, req: Request) -> int:
+        """Admission group key under the prefix cache: the slot's suffix
+        start CHUNK. A batched suffix prefill can skip only what every row
+        skips, so rows with different cached depths dispatch apart."""
+        return self.store.prefix_lease_info(slot)["prefill_start"] // self.ecfg.block_size
+
     def _admit(self) -> int:
-        """Fused admission: one dispatched prefill per bucket batch and one
-        batched write into the leased blocks. All buckets of a round are
-        dispatched before the first wait. Returns the number admitted."""
+        """Admission: one dispatched prefill per bucket group — the fused
+        step, the chunked scan for buckets wider than ``prefill_chunk``, or
+        the suffix scan from the group's start chunk for prefix-cache hits —
+        and one batched write into the leased slots. All groups of a round
+        are dispatched before the first wait. Returns the number admitted."""
         pending = []
         admitted = 0
-        for bucket, pairs in self.scheduler.plan_admissions(self._try_lease):
+        prefix = self.ecfg.prefix_cache
+        bs = self.ecfg.block_size
+        for bucket, pairs in self.scheduler.plan_admissions(
+                self._try_lease, self._prefix_group_key if prefix else None):
             admitted += len(pairs)
             toks = np.zeros((len(pairs), bucket), np.int32)
             last = np.zeros((len(pairs),), np.int32)
@@ -247,9 +295,26 @@ class Engine:
                 toks[i, :len(req.prompt)] = req.prompt
                 last[i] = len(req.prompt) - 1
                 req.metrics.admitted_s = now()
-            fut = self._dispatch_async(
-                self._prefill, self._params_buf, Buffer(toks, name=f"prefill{bucket}"),
-                Buffer(last), flags=f"prefill/{bucket}")
+            # the scheduler grouped rows by start chunk: no row recomputes a
+            # cached position and none skips one it needs
+            start_chunk = self._prefix_group_key(*pairs[0]) if prefix else 0
+            bufs = (self._params_buf, Buffer(toks, name=f"prefill{bucket}"), Buffer(last))
+            if start_chunk > 0:
+                kv0 = self.store.gather_prefix_rows([slot for slot, _ in pairs], bucket)
+                fut = self._dispatch_async(
+                    lambda p, t, li, k0, fn=self._prefill_suffix, sc=start_chunk:
+                    fn(p, t, li, k0, sc),
+                    *bufs, self._resident(kv0, "prefix-kv0"),
+                    flags=f"prefill_prefix/{bucket}")
+                self.metrics.prefill_chunks += bucket // bs - start_chunk
+            else:
+                chunked = bucket in self._chunked_buckets
+                fut = self._dispatch_async(
+                    self._prefill_chunked if chunked else self._prefill, *bufs,
+                    flags=f"prefill_chunked/{bucket}" if chunked else f"prefill/{bucket}")
+                if prefix:
+                    # cold groups compute every block-size chunk
+                    self.metrics.prefill_chunks += bucket // bs
             pending.append((pairs, last, fut))
         for pairs, last, fut in pending:
             t0 = now()

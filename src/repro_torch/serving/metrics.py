@@ -65,6 +65,15 @@ class EngineMetrics:
     decode_steps: int = 0
     prefill_batches: int = 0
     prefill_tokens: int = 0                    # unpadded prompt tokens
+    prefill_chunks: int = 0                    # block-size prefill chunks
+                                               # computed (prefix-cache
+                                               # engines: cached chunks skip)
+    prefix_hits: int = 0                       # leases that matched cached
+                                               # prefix blocks (or a COW fork)
+    prefix_blocks_reused: int = 0              # whole cached blocks leased by
+                                               # refcount instead of prefilled
+    prefix_tokens_reused: int = 0              # prompt positions whose
+                                               # prefill was skipped
     prefill_wait_s: float = 0.0                # wall time blocked on prefills
     seed_write_s: float = 0.0                  # wall time in admission writes
     steps: int = 0
@@ -101,6 +110,10 @@ class EngineMetrics:
             "decode_steps": self.decode_steps,
             "prefill_batches": self.prefill_batches,
             "prefill_tokens": self.prefill_tokens,
+            "prefill_chunks": self.prefill_chunks,
+            "prefix_hits": self.prefix_hits,
+            "prefix_blocks_reused": self.prefix_blocks_reused,
+            "prefix_tokens_reused": self.prefix_tokens_reused,
             "prefill_wait_s": self.prefill_wait_s,
             "seed_write_s": self.seed_write_s,
             "sustained_tok_s": self.sustained_tok_s(),
@@ -110,8 +123,22 @@ class EngineMetrics:
 
 
 def format_memory_stats(ms: Dict) -> str:
-    """One-line cache-memory summary from ``PagedKVStore.memory_stats()``."""
+    """One-line cache-memory summary from ``SlotStore.memory_stats()``."""
     kib = ms.get("bytes", 0) / 1024.0
-    return (f"paged: {kib:.1f} KiB pool | block={ms['block_size']} tok | "
-            f"{ms['blocks_used']}/{ms['blocks_total']} blocks used "
-            f"({ms['blocks_free']} free) | block-native decode (no transient view)")
+    if ms.get("backend") == "paged":
+        if ms.get("native"):
+            tail = "block-native decode (no transient view)"
+        else:
+            tail = f"+{ms.get('decode_view_bytes', 0) / 1024.0:.1f} KiB transient decode view"
+        if "prefix_cached_blocks" in ms:
+            tail += (f" | prefix: {ms['prefix_hits']} hits, "
+                     f"{ms['prefix_blocks_reused']} blocks reused, "
+                     f"{ms['prefix_cached_blocks']} cached, "
+                     f"{ms['prefix_evictions']} evicted, "
+                     f"{ms['cow_forks']} COW forks")
+        return (f"paged: {kib:.1f} KiB pool | block={ms['block_size']} tok | "
+                f"{ms['blocks_used']}/{ms['blocks_total']} blocks used "
+                f"({ms['blocks_free']} free) | {tail}")
+    per_slot = ms.get("bytes_per_slot", 0) / 1024.0
+    return (f"{ms.get('backend', '?')}: {kib:.1f} KiB "
+            f"({per_slot:.1f} KiB/slot x {ms.get('slots', 0)} slots)")

@@ -66,7 +66,7 @@ class Scheduler:
 
     # ------------------------------------------------------------ join/retire
 
-    def plan_admissions(self, try_lease=None
+    def plan_admissions(self, try_lease=None, group_key=None
                         ) -> List[Tuple[int, List[Tuple[int, object]]]]:
         """Lease free slots to waiting requests (FIFO), grouped by prefill
         bucket: [(bucket_len, [(slot, request), ...]), ...]. Mutates the free
@@ -76,8 +76,13 @@ class Scheduler:
         capacity before the slot is committed (serving/store.py). A False
         return stops planning with the request still at the queue head —
         FIFO-order admission backpressure (e.g. paged block-pool exhaustion),
-        resolved when a retire frees capacity."""
-        groups: Dict[int, List[Tuple[int, object]]] = {}
+        resolved when a retire frees capacity.
+
+        ``group_key(slot, request)`` further partitions a bucket's admissions
+        (evaluated after the lease, so it can read what the lease reserved):
+        the prefix-cache engine keys by suffix start chunk, so a bucket may
+        appear once per distinct key, in key order."""
+        groups: Dict[Tuple[int, int], List[Tuple[int, object]]] = {}
         while self.waiting and self.free:
             req = self.waiting[0]
             slot = self.free[-1]
@@ -87,8 +92,9 @@ class Scheduler:
             self.free.pop()
             self.active[slot] = req
             b = bucket_for(len(req.prompt), self.buckets)
-            groups.setdefault(b, []).append((slot, req))
-        return sorted(groups.items())
+            key = (b, group_key(slot, req) if group_key is not None else 0)
+            groups.setdefault(key, []).append((slot, req))
+        return [(b, pairs) for (b, _), pairs in sorted(groups.items())]
 
     def decode_batch(self) -> Tuple[np.ndarray, np.ndarray]:
         """The in-flight batch as fixed-shape host arrays: ``tokens``

@@ -231,14 +231,6 @@ def test_use_opq_false_gives_same_tokens(tparams):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"cache_backend": "contiguous", "paged_native": False,
-      "paged_kernel": False}, "item 7"),
-    ({"cache_backend": "auto", "paged_native": False, "paged_kernel": False},
-     "item 7"),
-    ({"paged_native": False, "paged_kernel": False}, "item 7"),
-    ({"paged_kernel": False}, "item 7"),
-    ({"prefill_chunk": 16}, "item 9"),
-    ({"prefix_cache": True}, "item 9"),
     ({"speculative": True}, "item 9"),
 ])
 def test_unported_options_raise(tparams, kw, match):
@@ -247,9 +239,6 @@ def test_unported_options_raise(tparams, kw, match):
 
 
 def test_unported_int8_kv_and_sampling_raise(tparams):
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
-        Engine(TCFG.replace(kv_cache_dtype="int8"), tparams,
-               EngineConfig(**ECFG), device="cpu")
     eng = Engine(TCFG, tparams, EngineConfig(**ECFG), device="cpu")
 
     class Sampled:

@@ -16,7 +16,22 @@ Tolerances
   * f32 reductions and library transcendentals in another order or
     implementation (mean, tanh, fp matmul, fp conv): rtol 1e-5 (tanh 1e-6).
   * conv2D-lowered fp GEMM vs ``a @ b``: 1e-4, JAX's own contract.
+
+``test_every_instruction_matches_jax`` takes the JAX side from a fresh
+subprocess (``XLA_FLAGS=--xla_allow_excess_precision=false``, as the other
+parity tests run their references), not from the test worker: a worker's
+JAX state is whatever the test modules it imported and ran before left
+behind (``XLA_FLAGS`` set at import, a warm persistent compile cache). Once
+in three full runs with six workers the tanh case was off by 8.8e-5 in the
+worker where it ran first, and passed alone. ``test_tanh_fp_within_ulps_
+of_float64`` holds each side to float64 on its own, so that a recurrence
+names the side that moved.
 """
+
+import os
+import pickle
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -152,20 +167,55 @@ CASES = {
 }
 
 
+def _jax_instructions():
+    """Every CASES instruction, fp and quantized, through the JAX package."""
+    out = {}
+    for instr, (args, _, _) in CASES.items():
+        j_args = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
+        for quantized in (False, True):
+            out[instr.value, quantized] = np.asarray(
+                JI.invoke(instr, *j_args, quantized=quantized))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_instructions(tmp_path_factory):
+    """The JAX side of the instruction cases, run in a subprocess (module
+    doc)."""
+    out = tmp_path_factory.mktemp("instr") / "instr_ref.pkl"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_allow_excess_precision=false")
+    subprocess.run([sys.executable, __file__, str(out)], env=env, check=True,
+                   timeout=600)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp", "quant"])
 @pytest.mark.parametrize("instr", list(JI.Instr), ids=lambda i: i.value)
-def test_every_instruction_matches_jax(instr, quantized):
+def test_every_instruction_matches_jax(instr, quantized, jax_instructions):
     args, tol_fp, tol_q = CASES[instr]
     tol = tol_q if quantized else tol_fp
     t_args = [_t(a) if isinstance(a, np.ndarray) else a for a in args]
-    j_args = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
     out = TI.invoke(TI.Instr(instr.value), *t_args, quantized=quantized).numpy()
-    ref = np.asarray(JI.invoke(instr, *j_args, quantized=quantized))
+    ref = jax_instructions[instr.value, quantized]
     assert out.shape == ref.shape
     if tol == 0:
         _eq(out, ref)
     else:
         np.testing.assert_allclose(out, ref, rtol=tol, atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_tanh_fp_within_ulps_of_float64(side, jax_instructions):
+    """Each side's f32 tanh of the TANH case against float64 numpy: the port
+    (torch) within 1 ulp of 1.0, the JAX subprocess within 4."""
+    x = CASES[JI.Instr.TANH][0][0]
+    got = (TI.tanh_fp(_t(x)).numpy() if side == "port"
+           else jax_instructions[JI.Instr.TANH.value, False])
+    ulps = {"port": 1, "jax": 4}[side]
+    err = np.abs(got.astype(np.float64) - np.tanh(x.astype(np.float64))).max()
+    assert err <= ulps * np.finfo(np.float32).eps, err
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "mul"])
@@ -345,3 +395,8 @@ def test_quantize_on_card_matches_cpu_bitwise(cuda_device):
     a = _t(np.random.default_rng(1).uniform(-2, 2, (300, 260)).astype(np.float32))
     on_card = tgemm.gemm_fully_connected(a.to(cuda_device), a.T.to(cuda_device))
     assert torch.equal(on_card.cpu(), tgemm.gemm_fully_connected(a, a.T))
+
+
+if __name__ == "__main__":
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(_jax_instructions(), f)
