@@ -61,20 +61,34 @@ Run from the root of a checkout. Phases, one JSON line each:
                 with and without the prefix radix cache: tokens bitwise,
                 hits, reused blocks and positions, TTFT, launches, and
                 every block free or cached unreferenced after draining
- 13. gptpu    — the GPTPU library path: the card's instruction table and
+ 13. sampling — the serve traffic on the main path with the CLI's sampling
+                mix (even requests sampled at temperature 0.8, top-k 50,
+                top-p 0.9), a stop pair and logprobs: greedy requests keep
+                their serve streams, sampled ones their streams alone and
+                on a second run; threefry, the uniform and the Gumbel noise
+                and sample_tokens card against CPU; Engine.embed's logits
+                row bitwise the fused prefill's; tok/s, TTFT, the sampled
+                and greedy decode step and the sampler's device time
+ 14. speculative — greedy draft-verify decode (spec_k = 4) on the serve
+                traffic, contiguous, gather bridge and block-native plain,
+                with the target's weights and other weights as the draft:
+                tokens and retire-time cache rows bitwise plain decode's,
+                the good draft's acceptance within the length budget 1.0,
+                qgemm launches per round, the census after draining
+ 15. gptpu    — the GPTPU library path: the card's instruction table and
                 the tpuGemm lowering it picks, tpuGemm at 4096^3 in both
                 lowerings against an fp64 product, the seven applications
                 at n = 1024 (quantized) under the paper's Table-4 limits and
                 hotspot3d's fp path, with each kernel's launches read around
                 each call and checked where the path fixes them
- 14. gptpu_reference — the applications on the card against the same
+ 16. gptpu_reference — the applications on the card against the same
                 applications on the CPU through the plain versions
- 15. gptpu_profile — each application's host wall time beside the device
+ 17. gptpu_profile — each application's host wall time beside the device
                 time torch.profiler sees in it, and its top kernels
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
-gptpu and ops; ``ms`` and
+sampling, speculative, gptpu and ops; ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -198,7 +212,7 @@ def qgemm_bound(M, K, N, out_bytes=2):
 def check_qgemm(dev):
     """Bitwise against the plain version (and the int32 sums against an fp64
     product) in both regimes of the kernel's plan and both split paths: M in
-    {1, 8, 16} (decode) and {17, 128, 1024} at the five projection pairs,
+    {1, 8, 16} (decode) and {17, 40, 128, 1024} at the five projection pairs,
     ragged and unaligned shapes (the kernel's staged path), decode shapes
     whose tiles fill the card unsplit, every operand
     holding int8's -128 in a row of A and a column of B."""
@@ -206,7 +220,8 @@ def check_qgemm(dev):
     from repro_torch.kernels.qgemm import _sm_count, plan, qgemm, qgemm_plain
     gen = torch.Generator(device=dev).manual_seed(1)
     pairs = [(2048, 256), (2048, 2048), (2048, 5632), (5632, 2048), (2048, 32000)]
-    cases = [(M, K, N) for M in (1, 8, 16, 17, 128, 1024) for K, N in pairs]
+    # M = 40: the verify window of speculative decode (8 slots x 5 positions)
+    cases = [(M, K, N) for M in (1, 8, 16, 17, 40, 128, 1024) for K, N in pairs]
     cases += [(37, 130, 257), (7, 5632, 33), (13, 130, 257), (20, 32, 64), (3, 32, 4096),
               (16, 1024, 40960)]
     sms = _sm_count(torch.device(dev).index or 0)
@@ -238,7 +253,8 @@ def check_qgemm(dev):
 
 def time_qgemm(dev):
     """Kernel, plain and library times at every main-path projection shape:
-    decode (M = 8 slots) and one admission (M = 128 = one 128-token bucket),
+    decode (M = 8 slots), the speculative verify window (M = 40 = 8 slots x
+    5 positions) and one admission (M = 128 = one 128-token bucket),
     with the weight operand cold (``cold_copies``). ``ms``, ``plain_ms`` and
     ``library_ms`` are eager means (``time_ms``), which at these sizes count
     the host's time per call; ``graph_ms`` and ``library_graph_ms`` are
@@ -249,7 +265,7 @@ def time_qgemm(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     sms = _sm_count(torch.device(dev).index or 0)
     rows = []
-    for M in (8, 128):
+    for M in (8, 40, 128):
         for K, N in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)):
             a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
             bs = cold_copies(lambda: torch.randint(-127, 128, (K, N), generator=gen, device=dev,
@@ -1031,33 +1047,47 @@ def serve_setup(**replace):
     return cfg, params, prompts, args
 
 
-def drive(cfg, params, prompts, args, **ecfg_kw):
+def drive(cfg, params, prompts, args, submit_kw=None, engine_cls=None, draft_params=None,
+          **ecfg_kw):
     """serve.run's traffic (a request every ``--stagger-steps`` engine
-    steps) through an Engine with ``ecfg_kw``, every kernel's launches
-    counted from 0. Returns the requests, the engine's stats, the launches,
-    the wall time and the contiguous view of the cache once every request
-    was submitted."""
+    steps) through an Engine (``engine_cls``) with ``ecfg_kw``, every
+    kernel's launches counted from 0; request i is submitted with
+    ``submit_kw(i)``. Returns the requests, the engine's stats, the
+    launches, the wall time, the contiguous view of the cache once every
+    request was submitted, the engine and the host time of each decode step
+    (a speculative round: draft steps and verify). A speculative engine
+    also counts in ``spec_budget`` the draft proposals that fell within
+    their request's length budget (min(spec_k, tokens left - 1) per
+    slot-round): the denominator of an acceptance rate that the budget's
+    cut of the last round does not lower."""
     from repro_torch.serving.engine import Engine, EngineConfig
-    engine = Engine(cfg, params, EngineConfig(**{
+    engine = (engine_cls or Engine)(cfg, params, EngineConfig(**{
         "max_slots": args.slots, "max_queue": args.max_queue,
         "max_seq_len": args.prompt_len + args.gen, "block_size": args.block_size,
-        **ecfg_kw}), device=args.device)
+        **ecfg_kw}), device=args.device, draft_params=draft_params)
     decode_s = []
-    decode_once = engine._decode_once
+    name = "_spec_decode_once" if engine.ecfg.speculative else "_decode_once"
+    decode_once = getattr(engine, name)
+    engine.spec_budget = 0
 
     def timed_decode():
+        if engine.ecfg.speculative:
+            engine.spec_budget += sum(
+                min(engine.ecfg.spec_k, r.max_new_tokens - r.metrics.n_generated - 1)
+                for r in engine.scheduler.active.values())
         t = time.perf_counter()
         decode_once()
         decode_s.append(time.perf_counter() - t)
-    engine._decode_once = timed_decode
+    setattr(engine, name, timed_decode)
     counters = all_counters()
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
     try:
         reqs = []
-        for p in prompts:
-            reqs.append(engine.submit(p, args.gen, strict=True))
+        for i, p in enumerate(prompts):
+            reqs.append(engine.submit(p, args.gen, strict=True,
+                                      **(submit_kw(i) if submit_kw else {})))
             for _ in range(args.stagger_steps):
                 engine.step()
         view = {n: t.clone() for n, t in engine.store.gather_view().items()}
@@ -1066,7 +1096,7 @@ def drive(cfg, params, prompts, args, **ecfg_kw):
         engine.close()
     wall = time.perf_counter() - t0
     return (reqs, engine.stats(), {k: c.launches for k, c in counters.items()},
-            wall, view, engine.store, decode_s)
+            wall, view, engine, decode_s)
 
 
 def per_forward(cfg):
@@ -1266,7 +1296,7 @@ def check_prefix_cache():
     hot = drive(cfg, params, prompts, args, prefix_cache=True, **route)
     check([r.tokens for r in hot[0]] == [r.tokens for r in cold[0]],
           "the prefix cache changed the tokens")
-    stats, launches, store = hot[1], hot[2], hot[5]
+    stats, launches, store = hot[1], hot[2], hot[5].store
     cold_stats = cold[1]
     census = store.debug_block_census()
     check(census["referenced"] == [] and sorted(census["free"] + census["cached_unreferenced"])
@@ -1289,6 +1319,280 @@ def check_prefix_cache():
             "wall_s_hot": hot[3], "wall_s_cold": cold[3],
             "cache": stats["cache"], "census_after_drain": {k: len(v) for k, v in census.items()},
             "launches": launches}
+
+
+# ------------------------------------------ sampling and speculative decode
+
+SAMPLED_ARGS = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.9"]
+STOP_AT = 10           # the stop pair: request 1's serve tokens 10 and 11
+SAMPLER_MARGIN = 1e-5  # card vs CPU sampler: rows closer to a decision are not compared
+GUMBEL_ULPS = 4.0      # tests/test_torch_sampling.py's bound on |gumbel - JAX's|
+
+
+def sampler_margins(logits, sp, positions):
+    """Per row, on the CPU: how far the sampler's two float decisions lie
+    from flipping: the nucleus, min |cum - probs - top_p| over the row's
+    top-k entries (rows with top_p < 1), and the Gumbel-max, the gap
+    between the best and second-best allowed ``l + g``. ``sample_tokens``'s
+    steps, kept apart to read the margins."""
+    import torch
+    from repro_torch.serving import sampling as SMP
+    V = logits.shape[-1]
+    rep = sp["rep_penalty"][:, None]
+    pen = torch.where(logits > 0, logits / rep, logits * rep)
+    l = torch.where(sp["presence"], pen, logits) / torch.clamp(sp["temperature"], min=1e-6)[:, None]
+    srt = torch.sort(l, dim=-1, descending=True).values
+    k = torch.clamp(sp["top_k"], 0, V)[:, None]
+    in_k = (k <= 0) | (torch.arange(V)[None, :] < k)
+    probs = torch.softmax(torch.where(in_k, srt, torch.full_like(srt, -torch.inf)), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    top_p = sp["top_p"][:, None]
+    keep = in_k & (((cum - probs) < top_p) | (top_p >= 1.0))
+    keep[:, 0] = True
+    nucleus = torch.where(in_k & (top_p < 1.0), (cum - probs - top_p).abs(),
+                          torch.full_like(cum, torch.inf)).amin(dim=-1)
+    thresh = torch.where(keep, srt, torch.full_like(srt, torch.inf)).amin(dim=-1, keepdim=True)
+    z = torch.where(l >= thresh, l + SMP._gumbel_rows(sp["seed"], positions, V),
+                    torch.full_like(l, -torch.inf))
+    top2 = z.topk(2, dim=-1).values
+    return nucleus, top2[:, 0] - top2[:, 1]
+
+
+def check_sampler_card_vs_cpu(dev):
+    """(c) threefry bits and the uniform bitwise card against CPU, the
+    Gumbel value within GUMBEL_ULPS; (d) ``sample_tokens`` on the same f32
+    rows (uploaded from the CPU): the same tokens in every row whose
+    decisions lie more than SAMPLER_MARGIN from flipping; the sampler's
+    device time at the decode batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core.opq import to_device
+    from repro_torch.serving import sampling as SMP
+    V = 32000
+    seeds = torch.tensor([0, 1, 7, 2**31 + 5, 2**32 - 1]).repeat_interleave(4)
+    pos = torch.tensor([0, 127, 159, 2047]).repeat(5)
+    kc, kg = SMP.fold_in(seeds, pos), SMP.fold_in(seeds.to(dev), pos.to(dev))
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(kc, kg)), "fold_in differs on the card")
+    check(torch.equal(SMP.random_bits(kg, V).cpu(), SMP.random_bits(kc, V)),
+          "threefry bits differ on the card")
+    uc, ug = SMP.uniform(kc, V), SMP.uniform(kg, V).cpu()
+    check(torch.equal(ug.view(torch.int32), uc.view(torch.int32)), "uniform differs on the card")
+    gc, gg = SMP.gumbel(kc, V).double(), SMP.gumbel(kg, V).cpu().double()
+    eps = float(np.finfo(np.float32).eps)
+    ratio = float(((gg - gc).abs() / (eps * gc.abs().clamp(min=1.0))).max())
+    check(ratio <= GUMBEL_ULPS, f"gumbel card vs CPU {ratio} eps, bound {GUMBEL_ULPS}")
+    rng = np.random.default_rng(4)
+    B = 64
+    logits = torch.from_numpy((rng.standard_normal((B, V)) * 3).astype(np.float32))
+    grid = [dict(temperature=0.8, top_k=50, top_p=0.9), dict(temperature=1.0, top_p=0.9),
+            dict(temperature=0.6, top_k=0, top_p=0.95, repetition_penalty=1.2),
+            dict(temperature=1.3, top_k=200), dict()]
+    sps = [SMP.SamplingParams(seed=int(rng.integers(0, 2**32)), **grid[i % len(grid)])
+           for i in range(B)]
+    presence = rng.random((B, V)) < 0.01
+    positions = torch.from_numpy(rng.integers(0, 2048, B).astype(np.int32))
+    host = SMP.stack_params(sps, presence)
+    sp_c, sp_g = to_device(host, torch.device("cpu")), to_device(host, dev)
+    tc = SMP.sample_tokens(logits, sp_c, positions)
+    tg = SMP.sample_tokens(logits.to(dev), sp_g, positions.to(dev)).cpu()
+    nucleus, gap = sampler_margins(logits, sp_c, positions)
+    clear = (nucleus > SAMPLER_MARGIN) & (gap > SAMPLER_MARGIN)
+    check(torch.equal(tg[clear], tc[clear]),
+          f"sample_tokens picks other tokens on the card in rows {torch.nonzero(clear & (tg != tc)).tolist()}")
+    # the sampler's time at the decode batch: 8 rows, the serve mix
+    dsp = to_device(SMP.stack_params(
+        [SMP.SamplingParams(seed=i, **grid[0]) if i % 2 == 0 else None for i in range(8)],
+        presence[:8]), dev)
+    row8, pos8 = logits[:8].to(dev), positions[:8].to(dev)
+    return {"seeds_x_positions": len(seeds), "vocab": V, "bits_bitwise": True,
+            "uniform_bitwise": True, "gumbel_max_eps_ratio": ratio,
+            "rows": B, "rows_compared": int(clear.sum()),
+            "rows_under_nucleus_margin": int((nucleus <= SAMPLER_MARGIN).sum()),
+            "rows_under_gumbel_margin": int((gap <= SAMPLER_MARGIN).sum()),
+            "rows_differing_under_margin": int((tg != tc).sum()),
+            "sampler_graph_ms": graph_ms(lambda: SMP.sample_tokens(row8, dsp, pos8), 20),
+            "sampler_eager_ms": time_ms(lambda: SMP.sample_tokens(row8, dsp, pos8), 20),
+            "greedy_batch_eager_ms": time_ms(lambda: SMP.sample_tokens(
+                row8, dict(dsp, sampled=False), pos8), 20),
+            "logprob_info_graph_ms": graph_ms(lambda: SMP.logprob_info(
+                row8, row8.argmax(-1), V), 20)}
+
+
+def check_sampling(serve_reqs, serve_stats):
+    """The serve traffic on the main path with the CLI's sampling mix
+    (requests 0, 2, 4, 6 sample at temperature 0.8, top-k 50, top-p 0.9,
+    seeds 0, 2, 4, 6; the odd ones stay greedy), a stop pair taken from a
+    greedy request's serve stream, and logprobs on every request:
+    (a) greedy requests get their serve streams (up to a stop); (b) each
+    sampled request served alone by a one-slot engine gets its stream, and
+    a second run of the traffic gives the same streams; (c, d)
+    ``check_sampler_card_vs_cpu``; (e) a greedy token's logprob is the top
+    logprob; (f) ``Engine.embed``'s logits row of a 128-token prompt is the
+    fused prefill's last row, bitwise, and its argmax the first token."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import serve as SV
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, params, prompts, args = serve_setup()
+    stop = serve_reqs[1].tokens[STOP_AT:STOP_AT + 2]
+    sargs = serve.build_parser().parse_args(
+        SERVE_ARGS + SAMPLED_ARGS + ["--stop", ",".join(map(str, stop))])
+
+    def submit_kw(i):
+        return {"sampling": serve.sampling_for(sargs, i), "want_logprobs": 5}
+    route = ROUTES["native_kernel"]
+    greedy = drive(cfg, params, prompts, args, **route)
+    runs = [drive(cfg, params, prompts, args, submit_kw=submit_kw, **route) for _ in range(2)]
+    reqs, stats, launches = runs[0][0], runs[0][1], runs[0][2]
+    check([r.tokens for r in runs[1][0]] == [r.tokens for r in reqs],
+          "a second run of the sampled traffic gave other tokens")
+    check_route_launches("sampling", cfg, stats, launches, paged=True)
+    check(stats["sampled_tokens"] > 0 and stats["stop_hits"] >= 1,
+          f"sampling: {stats['sampled_tokens']} sampled tokens, {stats['stop_hits']} stops")
+    for i, r in enumerate(reqs):
+        if r.sampling.greedy:                                        # (a), (e)
+            want = serve_reqs[i].tokens
+            check(r.tokens == want[:len(r.tokens)] and (
+                r.finish_reason == "length" and r.tokens == want
+                or r.finish_reason == "stop" and r.tokens[-2:] == stop),
+                f"greedy request {i} beside sampled ones left its serve stream")
+            check(all(lp == top[0][1] for lp, top in zip(r.logprobs, r.top_logprobs)),
+                  f"greedy request {i}: chosen logprob is not the top logprob")
+        check(len(r.logprobs) == len(r.top_logprobs) == len(r.tokens)
+              and all(len(t) == 5 for t in r.top_logprobs), f"request {i}: logprob records")
+    engine = Engine(cfg, params, EngineConfig(
+        max_slots=1, max_seq_len=args.prompt_len + args.gen, cache_backend="paged",
+        block_size=args.block_size, paged_native=True, paged_kernel=True), device=args.device)
+    alone = 0
+    try:                                                             # (b)
+        for i, r in enumerate(reqs):
+            if not r.sampling.greedy:
+                solo = engine.submit(r.prompt, args.gen, strict=True, **submit_kw(i))
+                engine.run_until_complete()
+                check(solo.tokens == r.tokens, f"sampled request {i} alone gave other tokens")
+                alone += 1
+        t = torch.as_tensor(prompts[:1], device=args.device)     # (f)
+        emb = engine.embed(prompts[0])
+        logits, _ = SV.prefill_with_cache(params, cfg, t)
+        row = logits[0, -1, :cfg.vocab].float().cpu().numpy()
+        check(np.array_equal(emb["logits"], row), "embed's logits row is not the prefill's")
+        check(int(np.argmax(emb["logits"])) == serve_reqs[0].tokens[0],
+              "embed's argmax is not the first token")
+    finally:
+        engine.close()
+
+    def med(xs):
+        return 1e3 * float(np.median(xs))
+
+    def ttft(rs):
+        return 1e3 * float(np.mean([r.metrics.ttft_s for r in rs]))
+    return launches, {
+        "stop": stop, "stop_hits": stats["stop_hits"],
+        "finish_reasons": [r.finish_reason for r in reqs],
+        "sampled_tokens": stats["sampled_tokens"], "tokens_generated": stats["tokens_generated"],
+        "greedy_streams_equal_serve": True, "sampled_alone_equal": alone,
+        "embed": {"bucket": args.prompt_len, "logits_row_bitwise": True,
+                  "embedding_norm": float(np.linalg.norm(emb["embedding"]))},
+        "sustained_tok_s": stats["sustained_tok_s"],
+        "sustained_tok_s_greedy_same_phase": greedy[1]["sustained_tok_s"],
+        "sustained_tok_s_serve_phase": serve_stats["sustained_tok_s"],
+        "mean_ttft_ms": ttft(reqs), "mean_ttft_ms_greedy_same_phase": ttft(greedy[0]),
+        "mean_ttft_ms_serve_phase": serve_stats["mean_ttft_ms"],
+        "decode_step_ms_median_sampled": med(runs[0][6]),
+        "decode_step_ms_median_sampled_second_run": med(runs[1][6]),
+        "decode_step_ms_median_greedy": med(greedy[6]),
+        "card_vs_cpu": check_sampler_card_vs_cpu(torch.device(args.device)),
+        "launches": launches}
+
+
+SPEC_K = 4
+
+
+def snapshot_engine_cls():
+    """An Engine that keeps each request's cache rows (its lease's extent,
+    prompt + max_new) at retire, before the reset scrubs them."""
+    from repro_torch.serving.engine import Engine
+
+    class SnapshotEngine(Engine):
+        def _retire(self, slot):
+            req = self.scheduler.active[slot]
+            ext = len(req.prompt) + req.max_new_tokens
+            self.rows = getattr(self, "rows", {})
+            self.rows[req.id] = {n: leaf[:, slot, :ext].clone() for n, leaf in
+                                 self.store.gather_view().items() if n != "index"}
+            super()._retire(slot)
+    return SnapshotEngine
+
+
+def check_speculative():
+    """Greedy speculative decode (spec_k = 4) on the serve traffic through
+    the contiguous store, the paged gather bridge and block-native plain,
+    with a good draft (the target's weights) and a bad one (generator seed
+    --seed + 1): tokens and every request's retire-time cache rows bitwise
+    those of plain decode on the same route, the good draft's acceptance
+    within the length budget exactly 1.0, qgemm 155 launches per forward
+    (k + 1 draft steps and one verify per round), and every block back in
+    the free list after draining."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tensorizer as tz
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    cfg, params, prompts, args = serve_setup()
+    gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
+    bad = tz.quantize_params(init_model(cfg, gen, device=args.device),
+                             predicate=serve.quant_predicate)
+    snap = snapshot_engine_cls()
+    out, launches_all = {}, []
+    for route in ("contiguous", "bridge", "native_plain"):
+        plain = drive(cfg, params, prompts, args, engine_cls=snap, **ROUTES[route])
+        out[route] = {"plain": {"sustained_tok_s": plain[1]["sustained_tok_s"],
+                                "decode_steps": plain[1]["decode_steps"],
+                                "wall_s": plain[3]}}
+        for draft, dparams in (("good", params), ("bad", bad)):
+            reqs, stats, launches, wall, _, engine, round_s = drive(
+                cfg, params, prompts, args, engine_cls=snap, draft_params=dparams,
+                speculative=True, spec_k=SPEC_K, draft=cfg, **ROUTES[route])
+            name = f"{route}/{draft}"
+            check([r.tokens for r in reqs] == [r.tokens for r in plain[0]],
+                  f"{name}: speculative tokens differ from plain decode's")
+            for r, p in zip(reqs, plain[0]):
+                for leaf, t in engine.rows[r.id].items():
+                    check(torch.equal(t, plain[5].rows[p.id][leaf]),
+                          f"{name}: request {r.id}'s retire-time {leaf} rows differ from plain's")
+            forwards = stats["decode_steps"] + stats["draft_steps"] + 2 * stats["prefill_batches"]
+            check(launches["qgemm"] == per_forward(cfg) * forwards,
+                  f"{name}: qgemm launched {launches['qgemm']} times, expected "
+                  f"{per_forward(cfg)} x {forwards} forwards")
+            check(launches["paged_decode_attention"] == 0, f"{name}: paged attention launched")
+            within = stats["accepted_tokens"] / max(engine.spec_budget, 1)
+            if draft == "good":
+                check(within == 1.0, f"{name}: acceptance within budget {within}, not 1.0")
+            else:
+                check(stats["accepted_tokens"] < stats["proposed_tokens"],
+                      f"{name}: the bad draft was accepted everywhere")
+            census = None
+            if ROUTES[route]["cache_backend"] == "paged":
+                census = engine.store.debug_block_census()
+                check(census["referenced"] == [] and census["free"]
+                      == list(range(1, engine.store.n_blocks)), f"{name}: census {census}")
+                census = {k: len(v) for k, v in census.items()}
+            launches_all.append(launches)
+            out[route][draft] = {
+                "spec_rounds": stats["spec_rounds"], "draft_steps": stats["draft_steps"],
+                "decode_steps": stats["decode_steps"],
+                "proposed_tokens": stats["proposed_tokens"],
+                "accepted_tokens": stats["accepted_tokens"],
+                "acceptance_rate": stats["acceptance_rate"],
+                "acceptance_within_budget": within, "accept_hist": stats["accept_hist"],
+                "sustained_tok_s": stats["sustained_tok_s"], "wall_s": wall,
+                "round_ms_median": 1e3 * float(np.median(round_s)),
+                "qgemm_per_round": (launches["qgemm"] - 2 * per_forward(cfg)
+                                    * stats["prefill_batches"]) / stats["spec_rounds"],
+                "census_after_drain": census, "launches": launches}
+    return {k: sum(l[k] for l in launches_all) for k in launches_all[0]}, {
+        "spec_k": SPEC_K, "tokens_and_rows_bitwise_plain": True, **out}
 
 
 # ------------------------------------------------------ the GPTPU path
@@ -1602,6 +1906,10 @@ def main() -> int:
         phase("chunked", card=card, **chunked)
         prefix = check_prefix_cache()
         phase("prefix_cache", card=card, **prefix)
+        sampling_launches, sampling = check_sampling(reqs, serve_stats)
+        phase("sampling", card=card, **sampling)
+        spec_launches, spec = check_speculative()
+        phase("speculative", card=card, **spec)
         gptpu = check_gptpu(dev)
         phase("gptpu", card=card, **gptpu)
         phase("gptpu_reference", lowering=gptpu["lowering"],
@@ -1619,7 +1927,8 @@ def main() -> int:
                "stores": summed(*(v for k, v in stores.items() if k in ROUTES)),
                "int8_kv": summed(*(v for k, v in int8_kv.items() if k in ROUTES)),
                "chunked": summed(chunked["fused"], chunked["chunked"]),
-               "prefix_cache": prefix["launches"],
+               "prefix_cache": prefix["launches"], "sampling": sampling_launches,
+               "speculative": spec_launches,
                "gptpu": gptpu["launches"], "ops": ops_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape

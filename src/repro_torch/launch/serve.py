@@ -13,10 +13,19 @@ admits buckets wider than W by the chunked scan; ``--prefix-cache`` (paged)
 keeps the shared-prefix radix cache, and every request then opens with the
 same half-prompt preamble, a shared system prompt.
 
+``--temperature T`` (with ``--top-k``, ``--top-p``) samples the
+even-indexed requests with seed ``--seed + i`` while the odd ones stay
+greedy; ``--stop IDS`` (repeatable) applies to every request.
+``--speculative`` decodes by draft-verify rounds: a draft model
+(``--draft-config``) proposes ``--spec-k`` tokens per slot and the target
+verifies the window in one forward.
+
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions (use ``--smoke`` there: full width is 1.1B parameters). Weights are
-random, drawn from a ``torch.Generator`` seeded with ``--seed``. The report
-lines are those of ``repro.launch.serve``'s single-host branch.
+random, drawn from a ``torch.Generator`` seeded with ``--seed`` (the
+draft's too, so a draft of the target's config is the target); the prompts
+come from a numpy generator seeded the same way. The report lines are those
+of ``repro.launch.serve``'s single-host branch.
 """
 
 from __future__ import annotations
@@ -34,7 +43,10 @@ from repro_torch.core import tensorizer as tz
 from repro_torch.models import init_model
 from repro_torch.models.model import count_qtensors
 from repro_torch.serving.engine import Engine, EngineConfig, Request
-from repro_torch.serving.metrics import format_memory_stats
+from repro_torch.serving.metrics import (
+    format_memory_stats, format_sampling_stats, format_spec_stats,
+)
+from repro_torch.serving.sampling import SamplingParams
 
 
 def quant_predicate(path, leaf) -> bool:
@@ -77,11 +89,61 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix-cache", action="store_true",
                     help="paged backend: shared-prefix radix cache; the "
                          "synthetic prompts share a half-prompt preamble")
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-verify decode: the draft proposes --spec-k tokens "
+                         "per slot each round, the target verifies the window in "
+                         "one forward; tokens bitwise those of plain greedy decode")
+    ap.add_argument("--draft-config", default="tinyllama-1.1b",
+                    help="with --speculative: the draft's arch (the target's vocab; "
+                         "smoke-reduced under --smoke)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="with --speculative: draft proposals per round "
+                         "(verify window = spec-k + 1)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of the even-indexed requests (seed "
+                         "--seed + i); odd ones stay greedy (0 = all greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sampled requests: keep the k highest logits (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="sampled requests: nucleus filtering (1.0 = off)")
+    ap.add_argument("--stop", action="append", metavar="IDS",
+                    help="stop sequence as comma-separated token ids (repeatable; "
+                         "every request)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the weight generator and the prompts")
+                    help="seed of the weight generator and the prompts, and the "
+                         "base sampling seed (request i samples with seed + i)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for tests)")
     return ap
+
+
+def sampling_for(args, i: int):
+    """Request i's sampling params in the synthetic traffic: with
+    --temperature > 0 the EVEN-indexed requests sample (seed --seed + i) and
+    the odd ones stay greedy, so decode batches mix both; --stop applies to
+    all."""
+    stops = tuple(tuple(int(t) for t in s.split(",")) for s in (args.stop or []))
+    if args.temperature > 0 and i % 2 == 0:
+        return SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, seed=args.seed + i, stop=stops)
+    if stops:
+        return SamplingParams(stop=stops)
+    return None
+
+
+def build_model(arch: str, args, device):
+    """The weights of ``arch`` from a generator seeded with --seed, W8A8 with
+    --quantize serve: ``(cfg, params)``."""
+    cfg = get_config(arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    cfg = cfg.replace(quantize=args.quantize)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = init_model(cfg, gen, device=device)
+    if args.quantize == "serve":
+        params = tz.quantize_params(params, predicate=quant_predicate)
+    return cfg, params
 
 
 def run(argv=None) -> Tuple[List[Request], Dict]:
@@ -98,19 +160,35 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
         ap.error("--paged-kernel requires --paged-native")
     if args.prefix_cache and args.cache_backend != "paged":
         ap.error("--prefix-cache requires --cache-backend paged")
+    if args.spec_k < 1:
+        ap.error("--spec-k must be >= 1")
+    if args.speculative and args.paged_kernel:
+        ap.error("--speculative does not support --paged-kernel (the kernel is a "
+                 "one-query decode shape)")
+    if args.temperature < 0:
+        ap.error("--temperature must be >= 0 (0 = greedy)")
+    if not 0.0 < args.top_p <= 1.0:
+        ap.error("--top-p must be in (0, 1]")
+    if args.top_k < 0:
+        ap.error("--top-k must be >= 0 (0 = off)")
+    if args.temperature > 0 and args.speculative:
+        ap.error("--speculative is greedy-only: drop --speculative or --temperature")
+    for stop in args.stop or []:
+        if not all(t.strip().lstrip("-").isdigit() for t in stop.split(",")):
+            ap.error(f"--stop takes comma-separated token ids, got {stop!r}")
     device = resolve_device(args.device)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke()
-    cfg = cfg.replace(quantize=args.quantize)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = init_model(cfg, gen, device=device)
+    cfg, params = build_model(args.arch, args, device)
     if args.quantize == "serve":
-        params = tz.quantize_params(params, predicate=quant_predicate)
         print(f"[serve] Tensorizer W8A8: {count_qtensors(params)} weight "
               f"tensors quantized", flush=True)
+    draft_cfg = draft_params = None
+    if args.speculative:
+        # the draft's weights come from the same seed: with --draft-config
+        # equal to --arch the draft IS the target and acceptance is total
+        draft_cfg, draft_params = build_model(args.draft_config, args, device)
+        print(f"[serve] speculative: draft {args.draft_config}, k={args.spec_k} "
+              f"(verify window {args.spec_k + 1})", flush=True)
 
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len),
@@ -125,12 +203,14 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
         cache_backend=args.cache_backend, block_size=args.block_size,
         n_blocks=args.n_blocks or None,
         paged_native=args.paged_native, paged_kernel=args.paged_kernel,
-        prefill_chunk=args.prefill_chunk or None, prefix_cache=args.prefix_cache)
-    engine = Engine(cfg, params, ecfg, device=device)
+        prefill_chunk=args.prefill_chunk or None, prefix_cache=args.prefix_cache,
+        speculative=args.speculative, spec_k=args.spec_k, draft=draft_cfg)
+    engine = Engine(cfg, params, ecfg, device=device, draft_params=draft_params)
     try:
         requests = []
         for i in range(args.requests):
-            requests.append(engine.submit(prompts[i], args.gen, strict=True))
+            requests.append(engine.submit(prompts[i], args.gen,
+                                          sampling=sampling_for(args, i), strict=True))
             for _ in range(args.stagger_steps):
                 engine.step()
         engine.run_until_complete()
@@ -156,6 +236,10 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
           f"batched seed writes {s['seed_write_s']*1e3:.1f} ms | "
           f"0 replay decodes | "
           f"{s['admissions_deferred']} deferred (backpressure)", flush=True)
+    if args.speculative:
+        print(f"[serve] {format_spec_stats(s)}", flush=True)
+    if args.temperature > 0 or args.stop:
+        print(f"[serve] {format_sampling_stats(s)}", flush=True)
     if args.prefix_cache:
         print(f"[serve] prefix cache: {s['prefix_hits']} hits | "
               f"{s['prefix_blocks_reused']} blocks reused | "

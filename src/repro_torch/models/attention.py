@@ -1,7 +1,9 @@
 """Attention for the serving path: QKV projection, fused and chunked prefill
 that emit cache-layout K/V, contiguous decode, and block-native paged decode.
 
-The port of ``repro.models.attention``'s serving subset, float and int8 KV.
+The port of ``repro.models.attention``'s serving subset, float and int8 KV,
+with the speculative verify window (``verify_decode_attention``,
+``paged_verify_attention``).
 Every score and value contraction runs in f32 against the cache-dtype K/V
 (int8 entries dequantized first, exactly as decode reads them back), the
 math of the reference's ``decode_attention``, so that a cache seeded by any
@@ -211,7 +213,8 @@ def gather_block_kv(pool: Dict, tables: torch.Tensor) -> Dict:
 def _write_rows(leaf: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
                 ok: torch.Tensor, new: torch.Tensor) -> None:
     """``leaf[rows, pos] = new`` where ``ok``, the old entry elsewhere: the
-    reference's scatter with mode="drop", with no host sync."""
+    reference's scatter with mode="drop", with no host sync. One entry per
+    row: a repeated cell would take either of its values."""
     keep = ok.reshape((-1,) + (1,) * (new.ndim - 1))
     leaf[rows, pos] = torch.where(keep, new.to(leaf.dtype), leaf[rows, pos])
 
@@ -308,4 +311,115 @@ def paged_decode_attention(p: Dict, x: torch.Tensor, pool_k: torch.Tensor,
                  <= index[:, None, None, None])
         o = _attend(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
                     valid, cfg, x.dtype)
+    return _out(p, o, cfg)
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: a window of W queries per row
+# ---------------------------------------------------------------------------
+
+def _attend_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, cfg: ArchConfig,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The verify window's contraction as W one-query contractions of
+    exactly decode's shapes: query j of q (B, W, H, hd) attends keys
+    ``kpos <= positions[:, j]`` of the head-expanded K/V (B, S, H, hd),
+    through the call :func:`decode_attention` makes. A row's score and
+    value sums are then reduced in decode's order whatever W is (on the
+    H100, cuBLAS may sum a row of a multi-row call in another order than
+    the same row alone), so window position j keeps the bits of the decode
+    step it stands for. Returns (B, W, H, hd) in ``dtype``."""
+    kpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    return torch.cat([
+        _attend(q[:, j:j + 1].contiguous(), k, v,
+                kpos <= positions[:, j, None, None, None], cfg, dtype)
+        for j in range(q.shape[1])], dim=1)
+
+
+def verify_decode_attention(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor, positions: torch.Tensor,
+                            cfg: ArchConfig, *,
+                            cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                            ) -> torch.Tensor:
+    """Speculative-verify attention against contiguous rows (B, S, KV, hd):
+    x (B, W, D) is each row's window, at absolute ``positions`` (B, W) =
+    index + arange(W). All W new K/V entries are written into the rows
+    first, IN PLACE (positions past the rows are dropped), then query j
+    attends ``kpos <= positions[:, j]``: entries of later window positions
+    get weight exactly 0, as if not yet written. The visible entries are
+    the bits sequential :func:`decode_attention` steps write, and each
+    query's contraction is decode's (:func:`_attend_window`), so window
+    position j's output is the decode step's after j accepted tokens.
+    Rejected entries are real writes; the engine scrubs them through the
+    store's rollback. ``cache_scales`` selects the int8 KV cache. Returns
+    the attention output (B, W, D)."""
+    B, W = x.shape[:2]
+    S = cache_k.shape[1]
+    rows = torch.arange(B, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    ok = positions < S
+    pos = torch.clamp(positions, max=S - 1).long()
+    if cache_scales is not None:
+        leaves = (cache_k, cache_v) + tuple(cache_scales)
+        news = _quantize_kv(k_new, v_new)
+    else:
+        leaves, news = (cache_k, cache_v), (k_new, v_new)
+    # column by column: a clamped (dropped) entry must not race a real one
+    for j in range(W):
+        for leaf, new in zip(leaves, news):
+            _write_rows(leaf, rows, pos[:, j], ok[:, j], new[:, j])
+    if cache_scales is not None:
+        k = _dequant(cache_k, cache_scales[0], x.dtype)
+        v = _dequant(cache_v, cache_scales[1], x.dtype)
+    else:
+        k, v = cache_k, cache_v
+    o = _attend_window(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
+                       positions, cfg, x.dtype)
+    return _out(p, o, cfg)
+
+
+def paged_verify_attention(p: Dict, x: torch.Tensor, pool_k: torch.Tensor,
+                           pool_v: torch.Tensor, tables: torch.Tensor,
+                           positions: torch.Tensor, cfg: ArchConfig, *,
+                           cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                           ) -> torch.Tensor:
+    """Block-native speculative verify over ONE layer's pool
+    (n_blocks, block_size, KV, hd): :func:`verify_decode_attention`'s
+    write-then-attend addressed through the block tables. Window positions
+    past the slot extent go to the reserved null block 0 instead of a live
+    cell, so a window at the end of a lease never corrupts a leased
+    position. Then this layer's table-addressed rows are gathered into a
+    transient (B, MB * bs) view and attended with
+    :func:`paged_decode_attention`'s plain math, W queries wide. The
+    paged-attention kernel is a one-query decode kernel and takes no part
+    (the engine refuses ``speculative`` with ``paged_kernel``, as the JAX
+    package does). Returns (B, W, D)."""
+    B = x.shape[0]
+    bs = pool_k.shape[1]
+    S = tables.shape[1] * bs
+    rows = torch.arange(B, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    in_range = positions < S
+    pos_c = torch.clamp(positions, max=S - 1).long()
+    phys = torch.where(in_range, tables[rows[:, None], pos_c // bs].long(), 0)
+    off = torch.where(in_range, pos_c % bs, 0)
+    if cache_scales is not None:
+        pks, pvs = cache_scales
+        k_q, v_q, k_sc, v_sc = _quantize_kv(k_new, v_new)
+        for leaf, new in ((pool_k, k_q), (pool_v, v_q), (pks, k_sc), (pvs, v_sc)):
+            leaf[phys, off] = new
+    else:
+        pool_k[phys, off] = k_new.to(pool_k.dtype)
+        pool_v[phys, off] = v_new.to(pool_v.dtype)
+    flat = tables.reshape(-1).long()
+
+    def rows_of(pool):                          # (B, S, ...) view of one layer
+        return pool[flat].reshape(B, S, *pool.shape[2:])
+    if cache_scales is not None:
+        k = _dequant(rows_of(pool_k), rows_of(cache_scales[0]), x.dtype)
+        v = _dequant(rows_of(pool_v), rows_of(cache_scales[1]), x.dtype)
+    else:
+        k, v = rows_of(pool_k), rows_of(pool_v)
+    o = _attend_window(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
+                       positions, cfg, x.dtype)
     return _out(p, o, cfg)

@@ -74,7 +74,11 @@ def layer_params(layers: Dict, i: int) -> Dict:
 
 
 def _logits(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    x = L.apply_norm(params["final_ln"], x, cfg)
+    return _head(params, cfg, L.apply_norm(params["final_ln"], x, cfg))
+
+
+def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The vocab projection of final-norm hidden states ``x``."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = L.pdot(x, w, cfg)
     if cfg.vocab_padded != cfg.vocab:
@@ -89,13 +93,18 @@ def embed_tokens(params: Dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.T
     return params["embed"][tokens.long()].to(L.cdtype(cfg))
 
 
-def forward(params: Dict, cfg: ArchConfig,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            return_hidden: bool = False) -> Tuple[torch.Tensor, Any]:
     """Full-sequence forward over right-padded prompts ``tokens`` (B, S): the
     reference's ``forward(return_kv=True)``, the fused serving admission.
     Returns ``(logits, kv)``: logits (B, S, V_pad) and the per-layer K/V in
     decode-cache layout, {"k", "v": (L, B, S, KV, hd)} plus
-    {"k_scale", "v_scale": (L, B, S, KV)} with the int8 KV cache."""
+    {"k_scale", "v_scale": (L, B, S, KV)} with the int8 KV cache.
+
+    ``return_hidden`` returns ``(logits, hidden)`` instead: the final-norm
+    hidden states (B, S, D) the logits are projected from (the embedding
+    surface of the non-generative serve step), no K/V. The logits are the
+    same bits either way."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     int8_kv = cfg.kv_cache_dtype == "int8"
@@ -110,7 +119,11 @@ def forward(params: Dict, cfg: ArchConfig,
         x = x + o
         h = L.apply_norm(lp["ln2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], h, cfg)
-        entries.append(kv)
+        if not return_hidden:
+            entries.append(kv)
+    if return_hidden:
+        hidden = L.apply_norm(params["final_ln"], x, cfg)
+        return _head(params, cfg, hidden), hidden
     return _logits(params, cfg, x), {n: torch.stack([e[j] for e in entries])
                                      for j, n in enumerate(names)}
 

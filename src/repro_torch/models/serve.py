@@ -1,6 +1,7 @@
 """Serving path: cache construction, fused, chunked and suffix
-prefill-with-cache, contiguous decode and block-native paged decode — the
-port of ``repro.models.serve``'s dense subset, float and int8 KV.
+prefill-with-cache, contiguous decode, block-native paged decode and the
+speculative verify window on both layouts — the port of
+``repro.models.serve``'s dense subset, float and int8 KV.
 
 Cache dicts (dense family):
   contiguous  {"k", "v": (L, B, S, KV, hd), "index": (B,)}
@@ -166,20 +167,33 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 # ===========================================================================
 
 def _decode_layers(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
-                   attend) -> torch.Tensor:
+                   attend, norm=L.apply_norm) -> torch.Tensor:
     """The decode stack shared by the contiguous and paged layouts:
     ``attend(layer_params, h, i, scales)`` runs layer i's attention (writing
-    its cache leaves in place). Returns the logits (B, 1, V_pad)."""
+    its cache leaves in place), ``norm`` every RMSNorm. Returns the logits
+    (B, T, V_pad) of tokens (B, T): one position per slot at decode, the
+    window at verify."""
     int8_kv = "k_scale" in cache
     x = M.embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
         lp = M.layer_params(params["layers"], i)
-        h = L.apply_norm(lp["ln1"], x, cfg)
+        h = norm(lp["ln1"], x, cfg)
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8_kv else None
         x = x + attend(lp["attn"], h, i, scales)
-        h = L.apply_norm(lp["ln2"], x, cfg)
+        h = norm(lp["ln2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], h, cfg)
-    return M._logits(params, cfg, x)
+    return M._head(params, cfg, norm(params["final_ln"], x, cfg))
+
+
+def _norm_by_position(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """RMSNorm of a window (B, W, D) as W calls of decode's (B, 1, D)
+    shape: on the H100, PyTorch's row mean over D is summed in another order
+    when the call holds more rows (scripts/torch_row_invariance.py,
+    ``verify`` rows), and verify position j must keep the bits of the decode
+    step it stands for. The projections need no such care: their int8
+    products are exact and their activation scales per row."""
+    return torch.cat([L.apply_norm(p, x[:, j:j + 1].contiguous(), cfg)
+                      for j in range(x.shape[1])], dim=1)
 
 
 def decode(params: Dict, cfg: ArchConfig, cache: Dict,
@@ -216,3 +230,54 @@ def decode_paged(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tenso
                                         index, cfg, cache_scales=scales,
                                         use_kernel=use_kernel)
     return _decode_layers(params, cfg, cache, tokens, attend), dict(cache, index=index + 1)
+
+
+# ===========================================================================
+# speculative verify: score a k+1-token window in one forward
+# ===========================================================================
+
+def _window_positions(cache: Dict, tokens: torch.Tensor, window: int) -> torch.Tensor:
+    B, W = tokens.shape
+    if W != window:
+        raise ValueError(f"verify window of {W} tokens, the step was built for {window}")
+    return cache["index"][:, None] + torch.arange(W, dtype=torch.int32, device=tokens.device)
+
+
+def verify_window(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
+                  window: int) -> Tuple[torch.Tensor, Dict]:
+    """Speculative-verify forward over contiguous rows: ``tokens`` (B, W) is
+    each row's last emitted token and W-1 draft proposals, all scored in one
+    pass of the stack. Each layer writes the W new K/V entries into the
+    rows, in place, and attends with a per-query causal horizon
+    (models/attention.py ``verify_decode_attention``); the row reductions
+    (attention contractions, RMSNorms) run at decode's one-position shapes,
+    so position j's logits are the bits :func:`decode` gives after
+    accepting j tokens.
+    Dense family only (MoE targets: ROADMAP queue 1 item 11). Returns
+    ``(logits (B, W, V_pad), cache)`` with a NEW index ``index + W``; the
+    engine sets each slot's true position through the store's rollback."""
+    _check_dense(cfg)
+    positions = _window_positions(cache, tokens, window)
+
+    def attend(lp, h, i, scales):
+        return A.verify_decode_attention(lp, h, cache["k"][i], cache["v"][i], positions,
+                                         cfg, cache_scales=scales)
+    return (_decode_layers(params, cfg, cache, tokens, attend, _norm_by_position),
+            dict(cache, index=cache["index"] + window))
+
+
+def verify_window_paged(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
+                        window: int) -> Tuple[torch.Tensor, Dict]:
+    """Block-native speculative verify: :func:`verify_window` through the
+    paged pool and the block tables (models/attention.py
+    ``paged_verify_attention``); window cells past a slot's extent go to
+    the null block. Same logits, same index contract."""
+    _check_dense(cfg)
+    positions = _window_positions(cache, tokens, window)
+    tables = cache["tables"]
+
+    def attend(lp, h, i, scales):
+        return A.paged_verify_attention(lp, h, cache["k"][i], cache["v"][i], tables,
+                                        positions, cfg, cache_scales=scales)
+    return (_decode_layers(params, cfg, cache, tokens, attend, _norm_by_position),
+            dict(cache, index=cache["index"] + window))

@@ -1,9 +1,11 @@
 """Continuous-batching inference engine over the OPQ runtime — the port of
-``repro.serving.engine`` for the slice it serves: greedy decode of a dense
-model, float or int8 KV, through every SlotStore route of the reference
-(contiguous rows; the paged pool through the gather bridge, block-natively
-in plain torch, or block-natively through the paged-attention kernel), with
-chunked prefill for long prompts and the shared-prefix radix cache.
+``repro.serving.engine``'s single-host engine for a dense model, float or
+int8 KV, through every SlotStore route of the reference (contiguous rows;
+the paged pool through the gather bridge, block-natively in plain torch, or
+block-natively through the paged-attention kernel), with chunked prefill
+for long prompts, the shared-prefix radix cache, per-request sampling,
+stop sequences and logprobs, greedy speculative decode with a dense draft,
+and the non-generative ``embed`` forward.
 
 Requests enter a bounded FIFO (admission control); a slot scheduler joins
 them into a fixed-width in-flight decode batch and retires them as they
@@ -16,10 +18,15 @@ Every device step is an OPQ instruction, so buffer affinity and backup
 re-issue apply to serving traffic; the per-flag instruction counts are the
 dispatch audit trail.
 
-Decode is greedy and batch-invariant: every slot computes the math of a
+Decode is batch-invariant: every slot computes the math of a
 single-request decode at its own position (per-row activation scales,
 per-slot index), so staggered arrivals give the tokens each request would
-get alone.
+get alone. Sampled requests stay so: their noise is a function of (seed,
+position) only (serving/sampling.py). Speculative decode proposes
+``spec_k`` tokens per slot with a draft model and verifies the window in
+one target forward whose position j has the bits of the plain decode
+step after j accepted tokens, so greedy acceptance emits plain decode's
+stream, bit for bit.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.opq import OPQ, Buffer
 from repro_torch.models import steps as ST
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics, now
-from repro_torch.serving.scheduler import Scheduler, default_buckets
+from repro_torch.serving.sampling import (
+    GREEDY, TOP_LOGPROBS, SamplingParams, stack_params, stop_match,
+)
+from repro_torch.serving.scheduler import Scheduler, bucket_for, default_buckets
 from repro_torch.serving.store import SlotStore, make_store
 
 
@@ -54,7 +64,16 @@ class Request:
     state: RequestState = RequestState.QUEUED
     tokens: List[int] = dataclasses.field(default_factory=list)
     metrics: RequestMetrics = None
-    finish_reason: Optional[str] = None    # "length" | "eos"
+    sampling: Optional[SamplingParams] = None   # None == greedy
+    # tokens generated in earlier segments of this logical stream: stop
+    # sequences match against stop_history + tokens
+    stop_history: Tuple[int, ...] = ()
+    finish_reason: Optional[str] = None    # "length" | "eos" | "stop"
+    # logprob capture: None == off; N records the chosen token's logprob and
+    # its top-N alternatives per emitted token (N <= sampling.TOP_LOGPROBS)
+    want_logprobs: Optional[int] = None
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+    top_logprobs: List[List[Tuple[int, float]]] = dataclasses.field(default_factory=list)
 
     @property
     def last_token(self) -> int:
@@ -69,9 +88,9 @@ class Request:
 class EngineConfig:
     """Per-engine serving knobs, the JAX package's fields; see
     ``repro.serving.engine.EngineConfig`` for each field's meaning. The port
-    serves every field but ``speculative``/``spec_k``/``draft``, which raise
-    a ValueError naming the ROADMAP item that ports them, and
-    ``cache_backend="recurrent"`` (item 11)."""
+    serves every field for a dense target; ``cache_backend="recurrent"``
+    and a draft of another family raise a ValueError naming ROADMAP queue 1
+    item 11, which ports those families."""
 
     max_slots: int = 4
     max_queue: int = 64
@@ -91,14 +110,35 @@ class EngineConfig:
     draft: Optional[ArchConfig] = None
 
 
-def _check_config(cfg: ArchConfig, ecfg: EngineConfig) -> None:
-    """The reference's construction checks, and the options still to port."""
+def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
+    """The reference's construction checks, and the families still to port."""
     if cfg.family != "dense" or cfg.input_mode != "tokens":
         raise ValueError(
             f"the port serves token-input dense archs, got family={cfg.family} "
             f"input_mode={cfg.input_mode} (other families: ROADMAP queue 1 item 11)")
-    if ecfg.speculative or ecfg.draft is not None:
-        raise ValueError("speculative decode is not ported (ROADMAP queue 1 item 9)")
+    if ecfg.speculative:
+        if ecfg.draft is None or draft_params is None:
+            raise ValueError("speculative decode needs a draft model: set "
+                             "EngineConfig.draft and pass Engine(..., draft_params=...)")
+        if ecfg.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {ecfg.spec_k}")
+        if ecfg.paged_kernel:
+            raise ValueError(
+                "speculative decode does not route through the paged-attention "
+                "kernel (a one-query decode shape; the verify window is "
+                "multi-query): drop paged_kernel")
+        d = ecfg.draft
+        if d.vocab != cfg.vocab:
+            raise ValueError(f"draft vocab {d.vocab} != target vocab {cfg.vocab}: "
+                             f"draft proposals must be target token ids")
+        if d.family != "dense" or d.input_mode != "tokens":
+            raise ValueError(
+                f"the port's draft must be a token-input dense arch, got "
+                f"family={d.family} input_mode={d.input_mode} (moe and recurrent "
+                f"drafts: ROADMAP queue 1 item 11)")
+    elif ecfg.draft is not None:
+        raise ValueError("EngineConfig.draft is set but speculative=False: enable "
+                         "speculative or drop the draft config")
     if ecfg.paged_kernel and not ecfg.paged_native:
         raise ValueError("paged_kernel requires paged_native=True")
     if ecfg.paged_native and ecfg.cache_backend != "paged":
@@ -166,10 +206,10 @@ class Engine:
     plain versions (tests)."""
 
     def __init__(self, cfg: ArchConfig, params, engine_cfg: EngineConfig = None,
-                 *, device=None, opq: Optional[OPQ] = None):
+                 *, device=None, opq: Optional[OPQ] = None, draft_params=None):
         self.cfg = cfg
         self.ecfg = engine_cfg or EngineConfig()
-        _check_config(cfg, self.ecfg)
+        _check_config(cfg, self.ecfg, draft_params)
         self.device = resolve_device(device)
         buckets, self._chunked_buckets = _buckets(self.ecfg)
         self.scheduler = Scheduler(self.ecfg.max_slots, buckets)
@@ -187,11 +227,29 @@ class Engine:
                                 if self.ecfg.prefix_cache else None)
         self._decode = (ST.make_paged_decode_step(cfg, use_kernel=self.ecfg.paged_kernel)
                         if self.ecfg.paged_native else ST.make_decode_step(cfg))
+        self._embed = ST.make_embed_step(cfg)
         self._owns_opq = opq is None and self.ecfg.use_opq
         self.opq = ((OPQ([self.device]) if self._owns_opq else opq)
                     if self.ecfg.use_opq else None)
         self._params_buf = Buffer(params, name="params")
+        # speculative decode: the target's W = spec_k + 1 verify step, and the
+        # draft as a second program with its own slot-synced contiguous
+        # store, admitted, rolled back and reset in lockstep with the target
+        self.draft_store: Optional[SlotStore] = None
+        if self.ecfg.speculative:
+            W = self.ecfg.spec_k + 1
+            self._verify = (ST.make_paged_verify_step(cfg, W) if self.ecfg.paged_native
+                            else ST.make_verify_step(cfg, W))
+            dcfg = self.ecfg.draft
+            self.draft_store = make_store(dcfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
+                                          device=self.device)
+            self._draft_prefill = ST.make_prefill_with_cache_step(dcfg)
+            self._draft_decode = ST.make_decode_step(dcfg)
+            self._draft_params_buf = Buffer(draft_params, name="draft-params")
         self._req_ids = itertools.count()
+        # host mirror of each slot's token presence (prompt + generated), the
+        # repetition penalty's input; it rides the slot lease like the cache
+        self._presence = np.zeros((self.ecfg.max_slots, cfg.vocab_padded), bool)
         self.metrics = EngineMetrics()
         self._deferred_ids: set = set()
         self.completed: List[Request] = []
@@ -223,14 +281,29 @@ class Engine:
                     or not self.store.fits(prompt_len, max_new_tokens))
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
-               sampling=None, strict: bool = False) -> Optional[Request]:
+               sampling: Optional[SamplingParams] = None,
+               stop_history: Sequence[int] = (),
+               want_logprobs: Optional[int] = None,
+               strict: bool = False) -> Optional[Request]:
         """Admission control at the door: a bounded queue and a per-slot
         sequence budget. Returns the Request, or None when rejected
-        (QueueFull when ``strict``). Only greedy decoding is ported: a
-        ``sampling`` argument that is not greedy raises."""
-        if sampling is not None and not getattr(sampling, "greedy", False):
-            raise ValueError("non-greedy sampling is not ported "
-                             "(ROADMAP queue 1 item 9)")
+        (QueueFull when ``strict``).
+
+        ``sampling`` (None == greedy) rides the request through its slot
+        residency; ``stop_history`` is the generated prefix of an earlier
+        segment of the stream, which stop sequences see. ``want_logprobs``
+        (None == off) records each emitted token's logprob and its top-N
+        alternatives. Non-greedy sampling on a speculative engine raises:
+        greedy acceptance is what makes draft-verify exact."""
+        if sampling is not None and not sampling.greedy and self.ecfg.speculative:
+            raise ValueError(
+                f"speculative decode is greedy-only: temperature="
+                f"{sampling.temperature} needs sampled acceptance (rejection "
+                f"sampling, not in the JAX package either); drop speculative or "
+                f"the sampling params")
+        if want_logprobs is not None and not 0 <= want_logprobs <= TOP_LOGPROBS:
+            raise ValueError(f"want_logprobs must be in [0, {TOP_LOGPROBS}] (the "
+                             f"device-side top-K width), got {want_logprobs}")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if not self.would_accept(len(prompt), max_new_tokens):
             self.metrics.rejected += 1
@@ -241,7 +314,8 @@ class Engine:
                     f"max_seq_len={self.ecfg.max_seq_len}")
             return None
         req = Request(id=next(self._req_ids), prompt=prompt,
-                      max_new_tokens=max_new_tokens,
+                      max_new_tokens=max_new_tokens, sampling=sampling,
+                      stop_history=tuple(stop_history), want_logprobs=want_logprobs,
                       metrics=RequestMetrics(arrival_s=now(), prompt_len=len(prompt)))
         self.scheduler.enqueue(req)
         self.metrics.submitted += 1
@@ -280,8 +354,10 @@ class Engine:
         """Admission: one dispatched prefill per bucket group — the fused
         step, the chunked scan for buckets wider than ``prefill_chunk``, or
         the suffix scan from the group's start chunk for prefix-cache hits —
-        and one batched write into the leased slots. All groups of a round
-        are dispatched before the first wait. Returns the number admitted."""
+        and one batched write into the leased slots; with speculative decode
+        also the draft's prefill of the whole prompt, and its write into the
+        draft store. All groups of a round are dispatched before the first
+        wait. Returns the number admitted."""
         pending = []
         admitted = 0
         prefix = self.ecfg.prefix_cache
@@ -291,10 +367,15 @@ class Engine:
             admitted += len(pairs)
             toks = np.zeros((len(pairs), bucket), np.int32)
             last = np.zeros((len(pairs),), np.int32)
+            presence = np.zeros((len(pairs), self.cfg.vocab_padded), bool)
             for i, (slot, req) in enumerate(pairs):
                 toks[i, :len(req.prompt)] = req.prompt
                 last[i] = len(req.prompt) - 1
+                presence[i, req.prompt] = True
+                self._presence[slot, :] = presence[i]
                 req.metrics.admitted_s = now()
+            smp = Buffer(stack_params([req.sampling for _, req in pairs], presence),
+                         name="sampling")
             # the scheduler grouped rows by start chunk: no row recomputes a
             # cached position and none skips one it needs
             start_chunk = self._prefix_group_key(*pairs[0]) if prefix else 0
@@ -302,72 +383,207 @@ class Engine:
             if start_chunk > 0:
                 kv0 = self.store.gather_prefix_rows([slot for slot, _ in pairs], bucket)
                 fut = self._dispatch_async(
-                    lambda p, t, li, k0, fn=self._prefill_suffix, sc=start_chunk:
-                    fn(p, t, li, k0, sc),
-                    *bufs, self._resident(kv0, "prefix-kv0"),
+                    lambda p, t, li, k0, s, fn=self._prefill_suffix, sc=start_chunk:
+                    fn(p, t, li, k0, sc, s),
+                    *bufs, self._resident(kv0, "prefix-kv0"), smp,
                     flags=f"prefill_prefix/{bucket}")
                 self.metrics.prefill_chunks += bucket // bs - start_chunk
             else:
                 chunked = bucket in self._chunked_buckets
                 fut = self._dispatch_async(
-                    self._prefill_chunked if chunked else self._prefill, *bufs,
+                    self._prefill_chunked if chunked else self._prefill, *bufs, smp,
                     flags=f"prefill_chunked/{bucket}" if chunked else f"prefill/{bucket}")
                 if prefix:
                     # cold groups compute every block-size chunk
                     self.metrics.prefill_chunks += bucket // bs
-            pending.append((pairs, last, fut))
-        for pairs, last, fut in pending:
+            dfut = None
+            if self.draft_store is not None:
+                # the draft cache holds the whole prompt through the draft's
+                # own weights (the draft store has no prefix cache)
+                dfut = self._dispatch_async(
+                    self._draft_prefill, self._draft_params_buf,
+                    Buffer(toks, name=f"draft-prefill{bucket}"), Buffer(last),
+                    flags=f"draft_prefill/{bucket}")
+            pending.append((pairs, last, fut, dfut))
+        for pairs, last, fut, dfut in pending:
             t0 = now()
-            first, kv = fut.result()
+            first, kv, lp = fut.result()
             first = first.cpu().numpy()
             self.metrics.prefill_wait_s += now() - t0
             self.metrics.prefill_batches += 1
             self.metrics.prefill_tokens += int(last.sum()) + len(pairs)
             t0 = now()
-            self.store.write_slots([slot for slot, _ in pairs], kv,
-                                   [len(req.prompt) for _, req in pairs])
+            slots = [slot for slot, _ in pairs]
+            lens = [len(req.prompt) for _, req in pairs]
+            self.store.write_slots(slots, kv, lens)
+            if dfut is not None:
+                # the draft's first token is discarded: the target's is emitted
+                self.draft_store.write_slots(slots, dfut.result()[1], lens)
             self.metrics.seed_write_s += now() - t0
+            lp = self._host_logprobs(lp, [req for _, req in pairs])
             for i, (slot, req) in enumerate(pairs):
                 req.state = RequestState.RUNNING
-                req.tokens.append(int(first[i]))
+                self._emit(slot, req, [int(first[i])], lp, [i])
                 req.metrics.first_token_s = now()
-                req.metrics.n_generated = 1
                 self.metrics.observe_tokens(1)
                 if self._finished(req):
                     self._retire(slot)
         return admitted
 
+    def _host_logprobs(self, lp: Dict, reqs) -> Optional[Dict]:
+        """A step's logprob payload on the host, read only when a request of
+        the step asked for logprobs."""
+        if all(req.want_logprobs is None for req in reqs):
+            return None
+        return {k: v.cpu().numpy() for k, v in lp.items()}
+
+    def _emit(self, slot: int, req: Request, toks: List[int], lp: Optional[Dict],
+              idx: List) -> None:
+        """Append emitted tokens to a request, with their logprob records
+        (``lp[...][idx[j]]``: a row for prefill and decode, a (slot,
+        position) pair for verify) and the slot's presence."""
+        req.tokens.extend(toks)
+        req.metrics.n_generated += len(toks)
+        self._presence[slot, toks] = True
+        if req.sampling is not None and not req.sampling.greedy:
+            self.metrics.sampled_tokens += len(toks)
+        if req.want_logprobs is not None:
+            for j in idx:
+                req.logprobs.append(float(lp["lp"][j]))
+                req.top_logprobs.append([(int(t), float(v)) for t, v in
+                                         zip(lp["top_ids"][j], lp["top_lps"][j])])
+
+    def _sampling_batch(self) -> Buffer:
+        """The decode batch's stacked per-slot sampling params and presence
+        rows; idle slots and requests without params stack as GREEDY."""
+        return Buffer(stack_params(self.scheduler.sampling_by_slot(GREEDY),
+                                   self._presence.copy()), name="sampling")
+
     def _decode_once(self) -> None:
         toks, _ = self.scheduler.decode_batch()
-        next_tok, cache = self._dispatch(
+        next_tok, cache, lp = self._dispatch(
             self._decode, self._params_buf,
             self._resident(self.store.decode_cache(), "kv-cache"),
-            Buffer(toks, name="decode-tokens"),
+            Buffer(toks, name="decode-tokens"), self._sampling_batch(),
             flags="decode")
         self.store.swap(cache)
         self.metrics.decode_steps += 1
         next_np = next_tok.cpu().numpy()
-        produced = 0
-        for slot, req in list(self.scheduler.active.items()):
-            req.tokens.append(int(next_np[slot]))
-            req.metrics.n_generated += 1
-            produced += 1
+        active = list(self.scheduler.active.items())
+        lp = self._host_logprobs(lp, [req for _, req in active])
+        for slot, req in active:
+            self._emit(slot, req, [int(next_np[slot])], lp, [slot])
             if self._finished(req):
                 self._retire(slot)
+        self.metrics.observe_tokens(len(active))
+
+    def _spec_decode_once(self) -> None:
+        """One speculative draft-verify round: k+1 draft decode steps propose
+        k tokens per active slot (the last proposal is dropped; the extra
+        step keeps the draft cache in lockstep through a fully accepted
+        window), then ONE target verify of the W = k+1 window for the whole
+        batch, and each slot advances by its own acceptance: 1..k+1 tokens,
+        eos, length and stop sequences landing mid-window. Rejected window
+        positions are scrubbed from BOTH caches before any retire: later
+        verify horizons reach them, and the retire-time rows must equal plain
+        decode's."""
+        k = self.ecfg.spec_k
+        W = k + 1
+        n = self.ecfg.max_slots
+        toks, _ = self.scheduler.decode_batch()
+        # window column 0: each slot's last emitted token; 1..k: proposals
+        window = np.zeros((n, W), np.int32)
+        window[:, 0] = toks[:, 0]
+        cur = toks
+        for i in range(W):
+            nxt, dcache = self._dispatch(
+                self._draft_decode, self._draft_params_buf,
+                self._resident(self.draft_store.decode_cache(), "draft-cache"),
+                Buffer(cur, name="draft-tokens"), flags="draft_decode")
+            self.draft_store.swap(dcache)
+            self.metrics.draft_steps += 1
+            nxt_np = nxt.cpu().numpy().astype(np.int32)
+            if i < k:
+                window[:, i + 1] = nxt_np
+            cur = nxt_np.reshape(n, 1)
+        greedy, cache, lp = self._dispatch(
+            self._verify, self._params_buf,
+            self._resident(self.store.decode_cache(), "kv-cache"),
+            Buffer(window, name="verify-window"), flags="verify")
+        self.store.swap_window(cache, W)
+        self.metrics.decode_steps += 1
+        self.metrics.spec_rounds += 1
+        greedy_np = greedy.cpu().numpy()                   # (B, W)
+        active = list(self.scheduler.active.items())
+        lp = self._host_logprobs(lp, [req for _, req in active])
+        # per-slot acceptance on the host, and a fixed-shape rollback plan
+        slot_ids = np.full((n,), n, np.int64)              # pad: dropped
+        new_index = np.zeros((n,), np.int64)
+        scrub = np.full((n, k), self.ecfg.max_seq_len, np.int64)
+        produced = 0
+        to_retire = []
+        for slot, req in active:
+            # pre-round write position: the last emitted token's, unwritten
+            p = len(req.prompt) + req.metrics.n_generated - 1
+            g = greedy_np[slot]
+            a = 0             # leading draft proposals the target confirms
+            while a < k and window[slot, a + 1] == g[a]:
+                a += 1
+            emit = min(a + 1, req.max_new_tokens - req.metrics.n_generated)
+            if self.ecfg.eos_id is not None:
+                hits = np.flatnonzero(g[:emit] == self.ecfg.eos_id)
+                if hits.size:     # eos mid-window: nothing past it
+                    emit = int(hits[0]) + 1
+            stop = req.sampling.stop if req.sampling is not None else ()
+            if stop:
+                # a stop sequence can complete mid-window too
+                hist = tuple(req.stop_history) + tuple(req.tokens)
+                for j in range(emit):
+                    if stop_match(hist + tuple(int(t) for t in g[:j + 1]), stop):
+                        emit = j + 1
+                        break
+            self._emit(slot, req, [int(t) for t in g[:emit]], lp,
+                       [(slot, j) for j in range(emit)])
+            produced += emit
+            self.metrics.proposed_tokens += k
+            self.metrics.accepted_tokens += emit - 1
+            self.metrics.accept_hist[emit] = self.metrics.accept_hist.get(emit, 0) + 1
+            slot_ids[slot] = slot
+            new_index[slot] = p + emit
+            scrub[slot, :W - emit] = p + emit + np.arange(W - emit)
+            if self._finished(req):
+                to_retire.append(slot)
+        # the draft wrote K/V at exactly the target's window positions (feed
+        # i writes position p + i), so one rollback plan serves both stores
+        self.store.rollback(slot_ids, new_index, scrub)
+        self.draft_store.rollback(slot_ids, new_index, scrub)
+        for slot in to_retire:
+            self._retire(slot)
         self.metrics.observe_tokens(produced)
 
     def _finished(self, req: Request) -> bool:
+        """Finish check after every emission, setting ``finish_reason``
+        (priority: length, eos, stop). Stop sequences suffix-match
+        ``stop_history + tokens``, the generated stream only."""
         if req.metrics.n_generated >= req.max_new_tokens:
             req.finish_reason = "length"
             return True
         if self.ecfg.eos_id is not None and req.last_token == self.ecfg.eos_id:
             req.finish_reason = "eos"
             return True
+        stop = req.sampling.stop if req.sampling is not None else ()
+        if stop and stop_match(tuple(req.stop_history) + tuple(req.tokens), stop):
+            req.finish_reason = "stop"
+            self.metrics.stop_hits += 1
+            return True
         return False
 
     def _retire(self, slot: int) -> None:
         req = self.scheduler.retire(slot)
         self.store.reset(slot)
+        self._presence[slot, :] = False
+        if self.draft_store is not None:
+            self.draft_store.reset(slot)
         req.state = RequestState.DONE
         req.metrics.finish_s = now()
         self.metrics.completed += 1
@@ -386,7 +602,10 @@ class Engine:
                 f"zero active slots; store: {self.store.memory_stats()}")
         n_active = self.scheduler.n_active
         if n_active:
-            self._decode_once()
+            if self.ecfg.speculative:
+                self._spec_decode_once()
+            else:
+                self._decode_once()
         self.metrics.observe_step(self.scheduler.queue_depth, n_active)
 
     def has_work(self) -> bool:
@@ -400,6 +619,28 @@ class Engine:
             if steps > max_steps:
                 raise RuntimeError(f"engine did not drain in {max_steps} steps")
         return self.completed
+
+    # ------------------------------------------------------- non-generative
+
+    def embed(self, prompt: Sequence[int]) -> Dict[str, np.ndarray]:
+        """Non-generative forward (embeddings, classification): one bucketed
+        dispatch (flag ``embed/<bucket>``) returning the prompt's
+        last-position final-norm hidden state and its last-position logits
+        row, padded vocab columns trimmed. No slot is leased and the cache
+        is not touched."""
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        if len(prompt) < 1:
+            raise ValueError("embed needs a non-empty prompt")
+        bucket = bucket_for(len(prompt), self.scheduler.buckets)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :len(prompt)] = prompt
+        last = np.asarray([len(prompt) - 1], np.int32)
+        hid, row = self._dispatch(self._embed, self._params_buf,
+                                  Buffer(toks, name=f"embed{bucket}"), Buffer(last),
+                                  flags=f"embed/{bucket}")
+        self.metrics.embed_requests += 1
+        return {"embedding": hid[0].cpu().numpy(),
+                "logits": row[0, :self.cfg.vocab].cpu().numpy()}
 
     # --------------------------------------------------------------- summary
 

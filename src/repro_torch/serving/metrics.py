@@ -5,7 +5,8 @@ single-host subset.
 TTFT (arrival -> first token) splits into queue_wait_s (arrival ->
 admission) and prefill_s (admission -> first token: the fused prefill plus
 the seed write). ``tokens_generated`` reconciles with the sum of every
-request's ``n_generated``.
+request's ``n_generated``; the speculative counters reconcile with it
+(``accepted_tokens`` = emitted - 1 per slot-round).
 """
 
 from __future__ import annotations
@@ -61,8 +62,24 @@ class EngineMetrics:
     rejected: int = 0
     admissions_deferred: int = 0               # store lease refusals
     completed: int = 0
-    tokens_generated: int = 0                  # prefill first tokens + decode
-    decode_steps: int = 0
+    tokens_generated: int = 0                  # prefill first tokens + every
+                                               # token decode emitted (a
+                                               # speculative round emits
+                                               # 1..k+1 per slot)
+    decode_steps: int = 0                      # target decode-path forwards
+                                               # (plain steps + verify rounds)
+    spec_rounds: int = 0                       # draft-verify rounds
+    draft_steps: int = 0                       # draft decode dispatches
+    proposed_tokens: int = 0                   # draft proposals verified
+                                               # (spec_k per active slot-round)
+    accepted_tokens: int = 0                   # proposals the target confirmed
+                                               # (emitted - 1 per slot-round)
+    accept_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
+                                               # {tokens emitted in a
+                                               # slot-round: rounds}
+    sampled_tokens: int = 0                    # tokens of non-greedy requests
+    stop_hits: int = 0                         # stop-sequence finishes
+    embed_requests: int = 0                    # non-generative forwards
     prefill_batches: int = 0
     prefill_tokens: int = 0                    # unpadded prompt tokens
     prefill_chunks: int = 0                    # block-size prefill chunks
@@ -108,6 +125,15 @@ class EngineMetrics:
             "completed": self.completed,
             "tokens_generated": self.tokens_generated,
             "decode_steps": self.decode_steps,
+            "spec_rounds": self.spec_rounds,
+            "draft_steps": self.draft_steps,
+            "proposed_tokens": self.proposed_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "acceptance_rate": self.accepted_tokens / max(self.proposed_tokens, 1),
+            "accept_hist": dict(sorted(self.accept_hist.items())),
+            "sampled_tokens": self.sampled_tokens,
+            "stop_hits": self.stop_hits,
+            "embed_requests": self.embed_requests,
             "prefill_batches": self.prefill_batches,
             "prefill_tokens": self.prefill_tokens,
             "prefill_chunks": self.prefill_chunks,
@@ -120,6 +146,26 @@ class EngineMetrics:
             "mean_queue_depth": self.queue_depth_sum / max(self.steps, 1),
             "mean_occupancy": self.occupancy_sum / max(self.steps, 1),
         }
+
+
+def format_spec_stats(s: Dict) -> str:
+    """One-line speculative-decode summary from ``EngineMetrics.summary()``:
+    target dispatches against the tokens they bought, and the histogram of
+    tokens emitted per slot-round."""
+    hist = " ".join(f"{length}:{count}" for length, count in s["accept_hist"].items())
+    spt = s["decode_steps"] / max(s["tokens_generated"] - s["completed"], 1)
+    return (f"speculative: {s['spec_rounds']} rounds + {s['draft_steps']} "
+            f"draft steps | {s['accepted_tokens']}/{s['proposed_tokens']} "
+            f"proposals accepted ({s['acceptance_rate']:.2f}) | "
+            f"{spt:.2f} target steps/decode-token | "
+            f"accepted-length hist {{{hist}}}")
+
+
+def format_sampling_stats(s: Dict) -> str:
+    """One-line sampling summary from ``EngineMetrics.summary()``."""
+    return (f"sampling: {s['sampled_tokens']}/{s['tokens_generated']} tokens "
+            f"sampled | {s['stop_hits']} stop-sequence finishes | "
+            f"{s['embed_requests']} embed requests")
 
 
 def format_memory_stats(ms: Dict) -> str:

@@ -108,6 +108,15 @@ class Scheduler:
             active[slot] = True
         return tokens, active
 
+    def sampling_by_slot(self, default) -> List[object]:
+        """Each slot's SamplingParams, aligned with ``decode_batch``'s rows:
+        the active request's (``default`` when it has none), ``default`` for
+        idle slots. Params ride the slot like the cache lease does."""
+        out = [default] * self.n_slots
+        for slot, req in self.active.items():
+            out[slot] = getattr(req, "sampling", None) or default
+        return out
+
     def retire(self, slot: int):
         req = self.active.pop(slot)
         self.free.append(slot)

@@ -7,8 +7,10 @@ cache goes through the store: ``fits``/``available_now``/``lease``
 (capacity checks and reservation), ``write_slots`` (one admission bucket's
 K/V into its leased slots), ``reset`` (retire: back to the pristine
 pattern), ``decode_cache``/``swap`` (the cache handed to and adopted back
-from the decode step), ``gather_view`` (contiguous layout, for inspection)
-and ``memory_stats``.
+from the decode step; ``swap_window`` after a speculative verify step),
+``rollback`` (speculative decode: rejected window positions back to
+pristine), ``gather_view`` (contiguous layout, for inspection) and
+``memory_stats``.
 
 Backends
   ContiguousKVStore  K/V rows (L, B, S, KV, hd) sized to ``max_seq_len``.
@@ -141,6 +143,34 @@ class SlotStore(abc.ABC):
         """Adopt the cache returned by a decode step."""
         self.cache = new_cache
 
+    def swap_window(self, new_cache: Dict, window: int) -> None:
+        """Adopt the cache returned by a W-position verify step (speculative
+        decode). Stores whose decode bridge is the cache itself just swap;
+        the paged gather bridge writes all W entries per row back."""
+        self.swap(new_cache)
+
+    def rollback(self, slots, new_index, positions) -> None:
+        """Speculative rollback: scrub the rejected window positions
+        ``positions[i, :]`` (pad: max_seq_len) of each row ``slots[i]``
+        (pad: n_slots) back to pristine and set the row's index to
+        ``new_index[i]`` (host arrays). Correctness, not hygiene: later
+        verify horizons reach these positions, so a stale rejected entry
+        would move scores."""
+        slots_np = np.asarray(slots, np.int64)
+        pos_np = np.asarray(positions, np.int64)
+        live = slots_np < self.n_slots
+        cell = live[:, None] & (pos_np < self.max_seq_len)
+        rows = np.broadcast_to(slots_np[:, None], pos_np.shape)[cell]
+        self._scrub_positions(rows, pos_np[cell])
+        self.cache = _set_entries(
+            self.cache, "index", torch.as_tensor(slots_np[live], device=self.device),
+            torch.as_tensor(np.asarray(new_index, np.int32)[live], device=self.device))
+
+    def _scrub_positions(self, slots: np.ndarray, positions: np.ndarray) -> None:
+        """Back to pristine: position ``positions[i]`` of slot ``slots[i]``,
+        each pair valid (host arrays)."""
+        raise NotImplementedError(f"{self.kind} store does not support speculative rollback")
+
     def gather_view(self) -> Dict:
         """Contiguous-layout view of the cache (inspection and tests)."""
         return self.cache
@@ -197,6 +227,12 @@ class ContiguousKVStore(SlotStore):
             keep = valid.reshape(valid.shape + (1,) * (src.ndim - 3))
             leaf[:, slots_t] = torch.where(keep, src, torch.full_like(src, pristine_value(name)))
         self.cache = _set_entries(self.cache, "index", slots_t, n_valid_t)
+
+    def _scrub_positions(self, slots: np.ndarray, positions: np.ndarray) -> None:
+        s_t = torch.as_tensor(slots, device=self.device)
+        p_t = torch.as_tensor(positions, device=self.device)
+        for name, leaf in _kv_leaves(self.cache).items():
+            leaf[:, s_t, p_t] = pristine_value(name)
 
 
 class PagedKVStore(SlotStore):
@@ -581,6 +617,40 @@ class PagedKVStore(SlotStore):
         for name, leaf in _kv_leaves(self.cache).items():
             leaf[:, phys, off] = new_cache[name][:, rows, pos]
         self.cache = dict(self.cache, index=new_cache["index"])
+
+    def swap_window(self, new_cache: Dict, window: int) -> None:
+        """Native mode: adopt the pool. Bridge mode: write the view's W new
+        entries per row, at its pre-step index .. index + W - 1, back into
+        their pool cells; positions past the row (idle rows whose index ran
+        on, a window at the end of a lease) go to the null block, as the
+        block-native verify's own writes do."""
+        if self.native:
+            self.cache = new_cache
+            return
+        index = self.cache["index"]                  # pre-step write positions
+        tables = self.cache["tables"]
+        bs = self.block_size
+        rows = torch.arange(self.n_slots, device=self.device)[:, None]
+        positions = index[:, None] + torch.arange(window, device=self.device)
+        in_range = positions < self.max_seq_len
+        pos = torch.clamp(positions, max=self.max_seq_len - 1).long()
+        phys = torch.where(in_range, tables[rows, pos // bs].long(), 0)
+        off = torch.where(in_range, pos % bs, 0)
+        for name, leaf in _kv_leaves(self.cache).items():
+            leaf[:, phys, off] = new_cache[name][:, rows, pos]
+        self.cache = dict(self.cache, index=new_cache["index"])
+
+    def _scrub_positions(self, slots: np.ndarray, positions: np.ndarray) -> None:
+        """Through the host table mirror. A rejected position always lies in
+        a PRIVATE cell: generation positions start at the prompt length, past
+        every shared prefix block, inside the slot's lease; positions past
+        the lease name the null block, whose scrub is harmless."""
+        bs = self.block_size
+        phys = torch.as_tensor(self._tables[slots, positions // bs].astype(np.int64),
+                               device=self.device)
+        off = torch.as_tensor(positions % bs, device=self.device)
+        for name, leaf in _kv_leaves(self.cache).items():
+            leaf[:, phys, off] = pristine_value(name)
 
     def gather_view(self) -> Dict:
         """The pool in contiguous layout {k, v, (scales), index}: every

@@ -1,6 +1,6 @@
 """Shared harness of the engine-route parity tests (test_torch_routes.py,
-test_torch_prefill_routes.py): the same traffic through the reference
-Engine (repro.serving, run in a subprocess with
+test_torch_prefill_routes.py, test_torch_speculative.py): the same
+traffic through the reference Engine (repro.serving, run in a subprocess with
 ``XLA_FLAGS=--xla_allow_excess_precision=false``) and the port's
 (repro_torch.serving) on the same converted W8A8 weights.
 
@@ -35,6 +35,16 @@ def traffic(prompt_lens, gen, seed=7, preamble=0):
     prompts = [np.concatenate([pre, rng.integers(0, 256, (n - preamble,), dtype=np.int32)])
                for n in prompt_lens]
     return prompts, [gen] * len(prompts)
+
+
+def engine_kw(ecfg, cfg):
+    """EngineConfig fields of a case: BASE_ECFG under the case's, and with
+    ``speculative`` the target's own config as the draft (the draft's
+    params are the target's: acceptance is total)."""
+    kw = {**BASE_ECFG, **ecfg}
+    if kw.get("speculative"):
+        kw["draft"] = cfg
+    return kw
 
 
 def drive(engine, submit, prompts, gens, census):
@@ -85,7 +95,8 @@ def run_reference(cases):
         for name, (ecfg, kv_dtype, prompts, gens) in cases.items():
             for dtype in DTYPES:
                 cfg = base.replace(dtype=dtype, kv_cache_dtype=kv_dtype)
-                eng = Engine(cfg, params, EngineConfig(**{**BASE_ECFG, **ecfg}))
+                eng = Engine(cfg, params, EngineConfig(**engine_kw(ecfg, cfg)),
+                             draft_params=params if ecfg.get("speculative") else None)
                 reqs, census = drive(eng, lambda e, p, g: e.submit(p, g, want_logprobs=2),
                                      prompts, gens, eng.store.kind == "paged")
                 stats = eng.stats()
@@ -115,7 +126,8 @@ def run_port(params, name, case, dtype):
     ecfg, kv_dtype, prompts, gens = case
     cfg = get_config("tinyllama-1.1b").smoke().replace(
         quantize="serve", dtype=dtype, kv_cache_dtype=kv_dtype)
-    eng = Engine(cfg, params, EngineConfig(**{**BASE_ECFG, **ecfg}), device="cpu")
+    eng = Engine(cfg, params, EngineConfig(**engine_kw(ecfg, cfg)), device="cpu",
+                 draft_params=params if ecfg.get("speculative") else None)
     reqs, census = drive(eng, lambda e, p, g: e.submit(p, g), prompts, gens,
                          eng.store.kind == "paged")
     stats = eng.stats()

@@ -230,24 +230,6 @@ def test_use_opq_false_gives_same_tokens(tparams):
     assert _serve(tparams, use_opq=False)[0] == _serve(tparams)[0]
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"speculative": True}, "item 9"),
-])
-def test_unported_options_raise(tparams, kw, match):
-    with pytest.raises(ValueError, match=f"ROADMAP queue 1 {match}"):
-        Engine(TCFG, tparams, EngineConfig(**{**ECFG, **kw}), device="cpu")
-
-
-def test_unported_int8_kv_and_sampling_raise(tparams):
-    eng = Engine(TCFG, tparams, EngineConfig(**ECFG), device="cpu")
-
-    class Sampled:
-        greedy = False
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
-        eng.submit([1, 2, 3], 4, sampling=Sampled())
-    eng.close()
-
-
 def test_cuda_requested_without_card_raises(tparams, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
