@@ -14,7 +14,8 @@ Run from the root of a checkout. Phases, one JSON line each:
                 paths, ragged shapes and -128 operands included; paged
                 attention: partial leases, horizons on split boundaries, at
                 0, at the last cell and past S, the 2048-token context,
-                poisoned cells, 1e-5;
+                poisoned cells, and the engine's prefill rows at the serve
+                batch's and the chunked phase's shapes, 1e-5;
                 tile-scales GEMM bitwise; stencil bitwise at shapes on its
                 plan's edges (W % 4 != 0, H = 1, W = 1, H around a strip
                 boundary, an unaligned view), and on int8 codes bitwise
@@ -31,23 +32,27 @@ Run from the root of a checkout. Phases, one JSON line each:
                 exactly once
   5. serve    — the serving path at full width: tinyllama-1.1b W8A8, fused
                 prefill-with-cache admission, block-native paged decode
-                through qgemm and paged attention (repro_torch.launch.serve),
-                with every kernel's launch count read around the run; a
-                second run of the same traffic must give the same tokens
+                through qgemm and paged attention (repro_torch.launch.serve;
+                prefill's queries attend through the kernel too, one launch
+                per layer of every forward), with every kernel's launch
+                count read around the run; a second run of the same traffic
+                must give the same tokens
   6. batch_invariance — each request of the serve traffic served alone
                 (one slot: qgemm at M = 1, not 8) gives the tokens it got in
                 the batched run
   7. reference — the full-width model on the card against the same model
                 on the CPU through the plain versions (f32 compute dtype:
-                prefill and three decode steps)
+                the kernel route's prefill and three decode steps)
   8. decode_profile — host time of a served decode step beside the device
                 time torch.profiler sees in it, qgemm's and paged
-                attention's shares of it, and its top kernels
+                attention's shares of it, and its top kernels; then the
+                RMSNorm's fixed-tree row sum against one torch.sum, in turns
   9. stores   — the serve traffic through the contiguous store, the paged
                 gather bridge and block-native decode without the kernel:
                 tokens and every valid cache entry bitwise equal, qgemm 155
                 launches per forward and no paged-attention launch on each;
-                the kernel route held to the plain one by check_reference's
+                each route's TTFT, prefill wait and peak device memory; the
+                kernel route held to the plain one by check_reference's
                 rule at f32
  10. int8_kv  — the same with the int8 KV cache through those three routes
                 and the kernel route (which attends by the plain
@@ -56,7 +61,8 @@ Run from the root of a checkout. Phases, one JSON line each:
  11. chunked  — prompts of 1536 and 1900 tokens admitted by 256-token
                 chunks and by single-shot fused prefill: first tokens, the
                 seeded pool and the decoded tokens bitwise, and each
-                admission's peak device memory
+                admission's peak device memory; the same prompts fused on
+                the contiguous store, for its admission time and memory
  12. prefix_cache — the serve traffic with a shared half-prompt preamble,
                 with and without the prefix radix cache: tokens bitwise,
                 hits, reused blocks and positions, TTFT, launches, and
@@ -75,20 +81,33 @@ Run from the root of a checkout. Phases, one JSON line each:
                 tokens and retire-time cache rows bitwise plain decode's,
                 the good draft's acceptance within the length budget 1.0,
                 qgemm launches per round, the census after draining
- 15. gptpu    — the GPTPU library path: the card's instruction table and
+ 15. fleet    — the serve traffic through the serving fleet, tokens bitwise
+                the serve phase's: a Router over two in-process engines
+                (affinity hits, spills, tok/s and TTFT beside the single
+                engine's); prefill:1,decode:1 disaggregation (ships and no
+                fallback, no prefill on the decode host, the census after
+                draining, each ship's export, frame and import ms and
+                bytes); host 0 drained mid-run (handoffs, and request 0's
+                continuation cut points all clean), on the kernel route and
+                on the contiguous store (tokens bitwise the stores phase's
+                contiguous run); each in-process run's launches held to its
+                forwards; two worker
+                processes (boot s, RPC p50/p99, tok/s, pids, exited); the
+                HTTP API (a completion, an SSE stream, a classify)
+ 16. gptpu    — the GPTPU library path: the card's instruction table and
                 the tpuGemm lowering it picks, tpuGemm at 4096^3 in both
                 lowerings against an fp64 product, the seven applications
                 at n = 1024 (quantized) under the paper's Table-4 limits and
                 hotspot3d's fp path, with each kernel's launches read around
                 each call and checked where the path fixes them
- 16. gptpu_reference — the applications on the card against the same
+ 17. gptpu_reference — the applications on the card against the same
                 applications on the CPU through the plain versions
- 17. gptpu_profile — each application's host wall time beside the device
+ 18. gptpu_profile — each application's host wall time beside the device
                 time torch.profiler sees in it, and its top kernels
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
-sampling, speculative, gptpu and ops; ``ms`` and
+sampling, speculative, fleet (its in-process runs), gptpu and ops; ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -101,6 +120,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -354,20 +374,56 @@ def poisoned(k, v, tables, index):
     return kp, vp
 
 
+def prefill_rows_case(dev, B, Sq, length, start=0, seed=9, H=32, KV=4, hd=64, bs=16):
+    """The kernel's operands as an engine prefill builds them
+    (models/attention.py ``decode_row_operands``): B rows of Sq queries at
+    positions start..start+Sq-1, each query a kernel row over its row's
+    table of decode's width length // bs in a scratch pool; K/V of the
+    start + Sq positions written so far (the rest of the row zero), bf16."""
+    import torch
+    from repro_torch.models import attention as A
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Sq, H, hd), generator=gen)
+    k, v = (torch.randn((B, start + Sq, KV, hd), generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    positions = (start + torch.arange(Sq, dtype=torch.int32)).expand(B, Sq)
+    return list(A.decode_row_operands(q.to(dev), k.to(dev), v.to(dev), positions.to(dev),
+                                      A.DecodeRows(length, bs)))
+
+
+def plain_in_slices(q, k, v, tables, index, rows=128):
+    """The plain version ``rows`` kernel rows at a time (its gathered,
+    head-expanded f32 view of a prefill case would not fit at once)."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_decode_attention_plain
+    return torch.cat([paged_decode_attention_plain(q[i:i + rows], k, v, tables[i:i + rows],
+                                                   index[i:i + rows])
+                      for i in range(0, q.shape[0], rows)])
+
+
 def check_paged(dev):
     """Against the plain version at rtol = atol = 1e-5 (the online softmax
     and the plain full-row softmax differ only by f32 rounding), in every
-    case; with the null block and every cell past each horizon poisoned the
-    output must not move; two launches bitwise equal. Cases: the serving
-    shape (partial leases); its horizons on and beside split boundaries, at
-    0, at the table's last cell and past S (an idle slot); the long-context
-    shape (MB = 128) with every horizon at the last cell, and with mixed
-    horizons whose slots leave whole splits past the horizon; MHA with f32
-    pools in one split."""
+    case; two launches bitwise equal; in the decode cases, with the null
+    block and every cell past each horizon poisoned the output must not
+    move (a prefill case's rows share their blocks, so a cell past one
+    query's horizon lies inside another's). Decode cases: the serving shape
+    (partial leases); its horizons on and beside split boundaries, at 0, at
+    the table's last cell and past S (an idle slot); the long-context shape
+    (MB = 128) with every horizon at the last cell, and with mixed horizons
+    whose slots leave whole splits past the horizon; MHA with f32 pools in
+    one split. Prefill cases, the main path's prefill shapes: the serve
+    traffic's batch (8 rows x 128 queries, horizons 0..127, tables of
+    decode's 10 blocks) and the chunked phase's last 256-query piece of two
+    2048-position rows (MB = 128, horizons 1792..2047)."""
     import torch
-    from repro_torch.kernels.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain, plan)
+    from repro_torch.kernels.paged_attention import paged_decode_attention, plan
     per = plan(10, 16, 32, 4).per * 16                       # positions per split
+    prefill = {
+        "prefill_serving": prefill_rows_case(dev, 8, 128, 160),
+        "prefill_chunked": prefill_rows_case(dev, 2, CHUNK_W, CHUNK_SEQ,
+                                             start=CHUNK_SEQ - CHUNK_W, seed=10),
+    }
     cases = {
         "serving": paged_case(dev),
         "serving_edges": paged_full_case(
@@ -377,26 +433,31 @@ def check_paged(dev):
             dev, [0, 127, 128, 1023, 1024, 2047, 2047 + 500, 5], 128, seed=7),
         "mha_f32": [t.float() if t.dtype == torch.bfloat16 else t for t in
                     paged_case(dev, B=3, H=4, KV=4, hd=16, bs=8, MB=3, seed=4)],
+        **prefill,
     }
     out_rows, max_err = {}, 0.0
     for name, (q, k, v, tables, index) in cases.items():
         out = paged_decode_attention(q, k, v, tables, index)
-        ref = paged_decode_attention_plain(q, k, v, tables, index)
+        ref = plain_in_slices(q, k, v, tables, index)
         err = float((out - ref).abs().max())
         check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
               f"paged attention ({name}) err {err}")
         check(torch.equal(out, paged_decode_attention(q, k, v, tables, index)),
               f"paged attention ({name}): two launches differ")
-        kp, vp = poisoned(k, v, tables, index)
-        pois = paged_decode_attention(q, kp, vp, tables, index)
-        check(torch.allclose(pois, out, rtol=1e-5, atol=1e-5),
-              f"paged attention ({name}) leaks masked cells")
+        if name not in prefill:
+            kp, vp = poisoned(k, v, tables, index)
+            pois = paged_decode_attention(q, kp, vp, tables, index)
+            check(torch.allclose(pois, out, rtol=1e-5, atol=1e-5),
+                  f"paged attention ({name}) leaks masked cells")
         B, H, _ = q.shape
         p = plan(tables.shape[1], k.shape[1], H, k.shape[2])
         out_rows[name] = {"max_abs_err": err, "plan": list(p), "blocks": p.blocks(B, H),
-                          "index": index.tolist()}
+                          "B": B, "MB": tables.shape[1],
+                          "index": index.tolist() if name not in prefill else
+                          [int(index.min()), int(index.max())]}
         max_err = max(max_err, err)
-    check(out_rows["long_full"]["plan"][0] > 1 and out_rows["mha_f32"]["plan"][0] == 1,
+    check(out_rows["long_full"]["plan"][0] > 1 and out_rows["mha_f32"]["plan"][0] == 1
+          and out_rows["prefill_chunked"]["plan"][0] > 1,
           f"paged attention cases missed the split or the one-split path: {out_rows}")
     torch.cuda.synchronize()
     return {"cases": out_rows, "max_abs_err": max_err}
@@ -813,12 +874,14 @@ def check_serve():
     check(all(r.done and len(r.tokens) == gen for r in reqs), "a request did not finish")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.tokens), "token out of vocab")
     steps = stats["decode_steps"]
-    check(launches["paged_decode_attention"] == steps * cfg.n_layers,
-          f"paged attention launched {launches['paged_decode_attention']} times, "
-          f"expected {steps} decode steps x {cfg.n_layers} layers")
-    # per forward: q, k, v, o, wi, wg, wo per layer, plus the lm_head
+    # per forward: q, k, v, o, wi, wg, wo per layer, plus the lm_head; and on
+    # this route every forward, decode step or prefill batch, attends
+    # through the paged-attention kernel once per layer
     per_forward = 7 * cfg.n_layers + 1
     forwards = steps + stats["prefill_batches"]
+    check(launches["paged_decode_attention"] == forwards * cfg.n_layers,
+          f"paged attention launched {launches['paged_decode_attention']} times, "
+          f"expected {forwards} forwards x {cfg.n_layers} layers")
     check(launches["qgemm"] == per_forward * forwards,
           f"qgemm launched {launches['qgemm']} times, expected {per_forward} x "
           f"{forwards} forwards")
@@ -863,22 +926,31 @@ def check_batch_invariance(reqs):
             "same_tokens": True, "wall_s": time.perf_counter() - t0}
 
 
+def _store_length(P, n_steps):
+    """The positions of _prefill_then_decode's store rows: P prompt
+    positions and whole 16-token blocks for the decode steps, one spare."""
+    return P + 16 * ((n_steps + 15) // 16 + 1)
+
+
 def _prefill_then_decode(params, cfg, tokens, n_steps, feed=None, use_kernel=True):
-    """Prefill ``tokens`` (B, P) through the port's fused admission step,
-    seed a paged store with the K/V, and run ``n_steps`` block-native decode
-    steps (through the paged-attention kernel with ``use_kernel``), feeding
-    each step's greedy tokens (or ``feed[i]``). Returns the prefill logits,
-    each decode step's logits, and the fed tokens."""
+    """Prefill ``tokens`` (B, P) as an engine of this store's route does
+    (each query a one-query decode row of the store's length, through the
+    paged-attention kernel with ``use_kernel``), seed a paged store with the
+    K/V, and run ``n_steps`` block-native decode steps (through the kernel
+    with ``use_kernel``), feeding each step's greedy tokens (or
+    ``feed[i]``). Returns the prefill logits, each decode step's logits, and
+    the fed tokens."""
     import torch
-    from repro_torch.models import serve as SV
+    from repro_torch.models import attention as A, serve as SV
     from repro_torch.serving.store import PagedKVStore
     B, P = tokens.shape
     dev = tokens.device
-    store = PagedKVStore(cfg, B, P + 16 * ((n_steps + 15) // 16 + 1),
-                         block_size=16, native=True, device=dev)
+    length = _store_length(P, n_steps)
+    store = PagedKVStore(cfg, B, length, block_size=16, native=True, device=dev)
     for b in range(B):
         check(store.lease(b, P, n_steps + 1), "lease refused")
-    logits, kv = SV.prefill_with_cache(params, cfg, tokens)
+    logits, kv = SV.prefill_with_cache(params, cfg, tokens,
+                                       A.DecodeRows(length, 16 if use_kernel else None))
     store.write_slots(list(range(B)), kv, [P] * B)
     toks = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
     steps, fed = [], []
@@ -897,7 +969,9 @@ def _prefill_then_decode(params, cfg, tokens, n_steps, feed=None, use_kernel=Tru
 def check_reference():
     """The full-width model on the card (kernels) against the same model on
     the CPU (plain versions), same weights and inputs, in the f32 compute
-    dtype: a 16-token prefill of 2 prompts and 3 block-native decode steps.
+    dtype: a 16-token prefill of 2 prompts, as the kernel route's engine
+    runs it (every query through the paged-attention kernel, its plain
+    version on the CPU), and 3 block-native decode steps.
 
     Tolerance: RMS difference <= 1.5% and max <= 6% of the CPU logits'
     absolute max, and the same greedy token wherever the CPU's top-2 margin
@@ -912,7 +986,7 @@ def check_reference():
     from repro_torch.configs import get_config
     from repro_torch.core import tensorizer as tz
     from repro_torch.launch.serve import quant_predicate
-    from repro_torch.models import init_model, serve as SV
+    from repro_torch.models import attention as A, init_model, serve as SV
     cfg = get_config("tinyllama-1.1b").replace(quantize="serve", dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tz.quantize_params(init_model(cfg, gen, device="cuda"),
@@ -923,7 +997,8 @@ def check_reference():
     g_pre, g_steps, _ = _prefill_then_decode(params, cfg, tokens.cuda(), 3, feed=fed)
     nudged = dict(cpu_params, embed=torch.nextafter(
         cpu_params["embed"], torch.full_like(cpu_params["embed"], float("inf"))))
-    n_pre, _ = SV.prefill_with_cache(nudged, cfg, tokens)
+    n_pre, _ = SV.prefill_with_cache(nudged, cfg, tokens,
+                                     A.DecodeRows(_store_length(16, 3), 16))
     dn = (n_pre.float() - c_pre.float()).abs()
     out = {"cpu_one_ulp_embed_sensitivity": {
         "max_abs_diff": float(dn.max()), "rms_diff": float(dn.pow(2).mean().sqrt()),
@@ -950,13 +1025,18 @@ def profile_decode():
     """Where a served decode step's time goes: the bf16 W8A8 model at full
     width, 8 slots of 128-token prompts, block-native decode. Host wall time
     per step (synchronised) over 8 steps, then the same 8 steps under
-    torch.profiler for the device busy time and the kernels that fill it."""
+    torch.profiler for the device busy time and the kernels that fill it.
+
+    Then the RMSNorm two ways, in turns (fused, tree, tree, fused), each 8
+    steps timed and 8 profiled: the model's ``F.rms_norm`` (one launch) and
+    :func:`tree_norm`, the same norm with its row sums by a fixed tree of
+    halving adds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.core import tensorizer as tz
     from repro_torch.launch.serve import quant_predicate
-    from repro_torch.models import init_model, serve as SV
+    from repro_torch.models import attention as A, init_model, layers as L, serve as SV
     from repro_torch.serving.store import PagedKVStore
     cfg = get_config("tinyllama-1.1b").replace(quantize="serve")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -967,7 +1047,7 @@ def profile_decode():
     store = PagedKVStore(cfg, B, P + 32, block_size=16, native=True, device="cuda")
     for b in range(B):
         store.lease(b, P, 32)
-    _, kv = SV.prefill_with_cache(params, cfg, tokens.cuda())
+    _, kv = SV.prefill_with_cache(params, cfg, tokens.cuda(), A.DecodeRows(P + 32, 16))
     store.write_slots(list(range(B)), kv, [P] * B)
     toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
 
@@ -977,24 +1057,53 @@ def profile_decode():
         store.swap(cache)
         toks = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
 
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def measure():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        return wall_ms, prof
+
+    for _ in range(2):
+        step()
+    wall_ms, prof = measure()
     busy_ms, top = device_time(prof, n, 8)
+    fused, norm_ab = L.apply_norm, []
+    try:
+        for name in ("fused", "tree", "tree", "fused"):
+            L.apply_norm = fused if name == "fused" else tree_norm
+            step()
+            w, pr = measure()
+            norm_ab.append({"norm": name, "decode_step_wall_ms": w,
+                            "device_busy_ms_per_step": device_time(pr, n, 0)[0]})
+    finally:
+        L.apply_norm = fused
     return {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "qgemm_ms_per_step": device_time(prof, n, 0, "qgemm")[0],
             "paged_attention_ms_per_step": device_time(prof, n, 0, "paged_attention")[0],
-            "top_kernels_ms_per_step": top}
+            "top_kernels_ms_per_step": top, "norm_ab": norm_ab}
+
+
+def tree_norm(p, x, cfg, eps=1e-6):
+    """``layers.apply_norm`` with each row's sum of squares by a fixed tree
+    of elementwise halving adds (11 launches at D = 2048; zero-padded to a
+    power of two): row-invariant by construction, the yardstick of the
+    fused norm's cost in ``decode_profile``."""
+    import torch
+    xf = x.to(torch.float32)
+    t = xf * xf
+    width = 1 << max(t.shape[-1] - 1, 0).bit_length()
+    t = torch.cat([t, t.new_zeros(t.shape[:-1] + (width - t.shape[-1],))], dim=-1)
+    while t.shape[-1] > 1:
+        t = t[..., :t.shape[-1] // 2] + t[..., t.shape[-1] // 2:]
+    return (xf * torch.rsqrt(t / xf.shape[-1] + eps) * p["scale"]).to(x.dtype)
 
 
 def device_time(prof, n, k, name=""):
@@ -1059,8 +1168,14 @@ def drive(cfg, params, prompts, args, submit_kw=None, engine_cls=None, draft_par
     also counts in ``spec_budget`` the draft proposals that fell within
     their request's length budget (min(spec_k, tokens left - 1) per
     slot-round): the denominator of an acceptance rate that the budget's
-    cut of the last round does not lower."""
+    cut of the last round does not lower. The stats gain
+    ``device_peak_bytes``, the peak of allocated device memory over the run
+    above what was allocated before it."""
+    import torch
     from repro_torch.serving.engine import Engine, EngineConfig
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     engine = (engine_cls or Engine)(cfg, params, EngineConfig(**{
         "max_slots": args.slots, "max_queue": args.max_queue,
         "max_seq_len": args.prompt_len + args.gen, "block_size": args.block_size,
@@ -1095,7 +1210,8 @@ def drive(cfg, params, prompts, args, submit_kw=None, engine_cls=None, draft_par
     finally:
         engine.close()
     wall = time.perf_counter() - t0
-    return (reqs, engine.stats(), {k: c.launches for k, c in counters.items()},
+    stats = dict(engine.stats(), device_peak_bytes=torch.cuda.max_memory_allocated() - before)
+    return (reqs, stats, {k: c.launches for k, c in counters.items()},
             wall, view, engine, decode_s)
 
 
@@ -1110,7 +1226,7 @@ def check_route_launches(name, cfg, stats, launches, paged):
     check(launches["qgemm"] == per_forward(cfg) * forwards,
           f"{name}: qgemm launched {launches['qgemm']} times, expected "
           f"{per_forward(cfg)} x {forwards} forwards")
-    want = stats["decode_steps"] * cfg.n_layers if paged else 0
+    want = forwards * cfg.n_layers if paged else 0
     check(launches["paged_decode_attention"] == want,
           f"{name}: paged attention launched {launches['paged_decode_attention']} "
           f"times, expected {want}")
@@ -1131,8 +1247,10 @@ def serve_routes(cfg, params, prompts, args, routes, timed_only=()):
     """The serve traffic through each route of ``routes`` and
     ``timed_only``: tokens bitwise equal across ``routes``, the cache views
     equal on every valid position, qgemm's launches 155 per forward and
-    paged attention's 22 per decode step on the float-KV kernel route only,
-    0 elsewhere; each route's decode step times."""
+    paged attention's 22 per forward (decode step or prefill batch) on the
+    float-KV kernel route only, 0 elsewhere; each route's decode step
+    times, mean TTFT, prefill wait and peak device memory over the run.
+    Returns that summary and each route's tokens."""
     import numpy as np
     runs, out = {}, {}
     for route in list(routes) + list(timed_only):
@@ -1149,6 +1267,9 @@ def serve_routes(cfg, params, prompts, args, routes, timed_only=()):
                       "decode_step_ms_mean": 1e3 * float(np.mean(decode_s)),
                       "decode_step_ms_median": 1e3 * float(np.median(decode_s)),
                       "sustained_tok_s": stats["sustained_tok_s"],
+                      "mean_ttft_ms": 1e3 * float(np.mean([r.metrics.ttft_s for r in reqs])),
+                      "prefill_wait_s": stats["prefill_wait_s"],
+                      "device_peak_bytes": stats["device_peak_bytes"],
                       "launches": launches,
                       "decode_view_bytes": stats["cache"].get("decode_view_bytes", 0),
                       "cache_bytes": stats["cache"]["bytes"]}
@@ -1160,7 +1281,7 @@ def serve_routes(cfg, params, prompts, args, routes, timed_only=()):
             raise SmokeFailure(f"{route} gave other tokens than {first} (request {i})")
         same_valid_entries(f"{route} vs {first}", runs[route][1], runs[first][1],
                            runs[first][1]["index"])
-    return out
+    return out, {route: run[0] for route, run in runs.items()}
 
 
 def kernel_vs_plain_route(cfg, params, prompts, args):
@@ -1193,12 +1314,14 @@ def check_stores():
     bridge and block-native decode without the kernel: bitwise the same
     tokens and cache entries, no paged-attention launch; the kernel route
     too, for its step times beside theirs; then the kernel route held to the
-    plain one (f32)."""
+    plain one (f32). Returns the summary and the contiguous route's tokens
+    (the fleet phase's plain-route baseline)."""
     cfg, params, prompts, args = serve_setup()
-    out = serve_routes(cfg, params, prompts, args,
-                       ["contiguous", "bridge", "native_plain"], timed_only=["native_kernel"])
+    out, tokens = serve_routes(cfg, params, prompts, args,
+                               ["contiguous", "bridge", "native_plain"],
+                               timed_only=["native_kernel"])
     out["kernel_vs_plain"] = kernel_vs_plain_route(cfg, params, prompts, args)
-    return out
+    return out, tokens["contiguous"]
 
 
 def check_int8_kv():
@@ -1210,7 +1333,7 @@ def check_int8_kv():
     import torch
     from repro_torch.models import attention as A, serve as SV
     cfg, params, prompts, args = serve_setup(kv_cache_dtype="int8")
-    out = serve_routes(cfg, params, prompts, args, list(ROUTES))
+    out, _ = serve_routes(cfg, params, prompts, args, list(ROUTES))
     _, kv = SV.prefill_with_cache(params, cfg.replace(kv_cache_dtype="bfloat16"),
                                   torch.as_tensor(prompts[:2, :16], device=args.device))
     card = A._quantize_kv(kv["k"], kv["v"])
@@ -1237,7 +1360,10 @@ def check_chunked():
     context) admitted through the chunked scan (256-token chunks) and
     through single-shot fused prefill, paged native with the kernel: first
     tokens, the seeded pool (every valid position) and the decoded tokens
-    bitwise equal; each admission's peak device memory."""
+    bitwise equal; each admission's peak device memory. Then the same
+    prompts fused on the contiguous store (the CLI's default route, every
+    query through the plain one-query contraction) for that route's
+    long-prompt admission time and memory."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -1245,10 +1371,11 @@ def check_chunked():
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab, (n,), dtype=np.int32) for n in CHUNK_PROMPTS]
     runs, out = {}, {}
-    for name, kw in (("fused", {}), ("chunked", {"prefill_chunk": CHUNK_W})):
-        engine = Engine(cfg, params, EngineConfig(
-            max_slots=2, max_seq_len=CHUNK_SEQ, cache_backend="paged",
-            paged_native=True, paged_kernel=True, **kw), device=args.device)
+    for name, kw in (("fused", ROUTES["native_kernel"]),
+                     ("chunked", {**ROUTES["native_kernel"], "prefill_chunk": CHUNK_W}),
+                     ("fused_contiguous", ROUTES["contiguous"])):
+        engine = Engine(cfg, params, EngineConfig(max_slots=2, max_seq_len=CHUNK_SEQ, **kw),
+                        device=args.device)
         try:
             reqs = [engine.submit(p, CHUNK_GEN, strict=True) for p in prompts]
             counters = all_counters()
@@ -1267,6 +1394,8 @@ def check_chunked():
             stats = engine.stats()
         finally:
             engine.close()
+        check(all(r.done and len(r.tokens) == CHUNK_GEN for r in reqs),
+              f"chunked/{name}: a request did not finish")
         runs[name] = ([r.tokens for r in reqs], view)
         out[name] = {"admission_peak_bytes": peak, "admission_peak_over_before_bytes": peak - before,
                      "admission_wall_s": admit_s, "flags": stats["opq"]["flags"],
@@ -1474,7 +1603,7 @@ def check_sampling(serve_reqs, serve_stats):
                 alone += 1
         t = torch.as_tensor(prompts[:1], device=args.device)     # (f)
         emb = engine.embed(prompts[0])
-        logits, _ = SV.prefill_with_cache(params, cfg, t)
+        logits, _ = SV.prefill_with_cache(params, cfg, t, decode_rows=engine.decode_rows)
         row = logits[0, -1, :cfg.vocab].float().cpu().numpy()
         check(np.array_equal(emb["logits"], row), "embed's logits row is not the prefill's")
         check(int(np.argmax(emb["logits"])) == serve_reqs[0].tokens[0],
@@ -1593,6 +1722,321 @@ def check_speculative():
                 "census_after_drain": census, "launches": launches}
     return {k: sum(l[k] for l in launches_all) for k in launches_all[0]}, {
         "spec_k": SPEC_K, "tokens_and_rows_bitwise_plain": True, **out}
+
+
+# ------------------------------------------------------------ the fleet
+
+FLEET_DRAIN_AT = 6               # fleet steps before host 0 drains (--drain-at)
+SWEEP_CUTS = (1, 8, 16, 24, 31)  # continuation cut points W of one request
+
+
+def fleet_ecfg(args, **kw):
+    """The serve phase's engine config, as ``drive`` builds it."""
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(**{
+        "max_slots": args.slots, "max_queue": args.max_queue,
+        "max_seq_len": args.prompt_len + args.gen, "block_size": args.block_size,
+        **ROUTES["native_kernel"], **kw})
+
+
+def run_fleet(router, prompts, args, drain_at=None):
+    """serve.run's traffic through a Router: request i in session i % 2, a
+    request every ``--stagger-steps`` fleet steps; with ``drain_at`` host 0
+    drains after that many fleet steps. Returns the requests, the router's
+    stats and the wall time."""
+    t0 = time.perf_counter()
+    steps = 0
+    reqs = []
+
+    def tick():
+        nonlocal steps
+        router.step()
+        steps += 1
+        if drain_at is not None and steps == drain_at:
+            router.drain(0)
+    for i, p in enumerate(prompts):
+        reqs.append(router.submit(p, args.gen, session=str(i % 2), strict=True))
+        for _ in range(args.stagger_steps):
+            tick()
+    while router.has_work():
+        tick()
+    return reqs, router.stats(), time.perf_counter() - t0
+
+
+def fleet_summary(name, reqs, stats, wall, baseline):
+    """Tokens bitwise the serve phase's, and the fleet's rates."""
+    diff = [(i, next((j for j, (x, y) in enumerate(zip(r.tokens, b.tokens)) if x != y),
+                     min(len(r.tokens), len(b.tokens))))
+            for i, (r, b) in enumerate(zip(reqs, baseline)) if list(r.tokens) != list(b.tokens)]
+    check(not diff, f"fleet/{name}: tokens differ from the serve phase's (request, first "
+          f"index): {diff}")
+    r = stats["router"]
+    return {"sustained_tok_s": stats["fleet"]["sustained_tok_s"], "wall_s": wall,
+            "mean_ttft_ms": 1e3 * sum(q.token_ts[0] - q.arrival_s for q in reqs) / len(reqs),
+            "placed": r["placed"], "affinity_hits": r["affinity_hits"],
+            "spills": r["spills"], "hosts": [q.hosts for q in reqs]}
+
+
+def sweep_continuations(engine_factory, prompt, gen, cuts):
+    """Cut one greedy stream at each W of ``cuts`` and re-admit ``prompt +
+    tokens[:W]`` with budget ``gen - W`` on a fresh engine (the router's
+    re-prefill continuation): clean cut points (the stitched stream is the
+    uninterrupted one) and divergent ones with the first differing index."""
+    import numpy as np
+
+    def stream(p, g):
+        eng = engine_factory()
+        try:
+            req = eng.submit(p, g, strict=True)
+            eng.run_until_complete()
+        finally:
+            eng.close()
+        return list(req.tokens)
+    base = stream(prompt, gen)
+    clean, divergent = [], []
+    for w in cuts:
+        stitched = base[:w] + stream(np.concatenate([prompt, np.asarray(base[:w], np.int32)]),
+                                     gen - w)
+        if stitched == base:
+            clean.append(w)
+        else:
+            divergent.append([w, next(i for i, (x, y) in enumerate(zip(stitched, base))
+                                      if x != y)])
+    return {"cuts": list(cuts), "clean": clean, "divergent": divergent}
+
+
+def census_drained(name, store):
+    census = store.debug_block_census()
+    check(census["referenced"] == [] and sorted(census["free"] + census["cached_unreferenced"])
+          == list(range(1, store.n_blocks)), f"fleet/{name}: census after draining {census}")
+    return {k: len(v) for k, v in census.items()}
+
+
+def fleet_forwards(stats):
+    """The fleet's forwards, decode steps and prefill batches over every
+    host, in check_route_launches' form."""
+    hosts = stats["per_host"]
+    return {"decode_steps": sum(h["decode_steps"] for h in hosts),
+            "prefill_batches": sum(h["prefill_batches"] for h in hosts)}
+
+
+def check_fleet(serve_reqs, serve_stats, contiguous_tokens):
+    """The serving fleet at full width on the serve traffic (the serve
+    phase's tokens are the baseline, bitwise): (1) a Router over two
+    in-process engines, sessions i % 2; (2) prefill:1,decode:1
+    disaggregation in process: ships and no fallback, no prefill on the
+    decode host, every block free or cached unreferenced after draining,
+    each ship's export, frame and import time and bytes; (3) host 0 drained
+    at fleet step FLEET_DRAIN_AT with handoff_threshold 0, and every
+    continuation cut point of request 0 at SWEEP_CUTS clean; (3b) the same
+    drain and sweep on the contiguous store, the CLI's default route, whose
+    prefill runs the plain one-query contraction: tokens bitwise the stores
+    phase's contiguous run (``contiguous_tokens``); (4) two
+    SubprocessTransport workers on the card, each warmed by one short
+    request: boot time, RPC p50/p99, tok/s, pids, both exited after close;
+    (5) serve_api over the engine: one completion, an SSE stream and a
+    classify over HTTP. Launches are counted around each in-process fleet
+    run of (1)-(3b), each held to its forwards over every host
+    (check_route_launches), and summed; a worker process counts its own."""
+    import http.client
+    import numpy as np
+    from repro_torch.serving.api import serve_api
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.router import Router, RouterConfig, parse_disaggregate
+    from repro_torch.serving.transport import (
+        SubprocessTransport, build_inproc_fleet, build_model_spec, decode_frame,
+        encode_frame,
+    )
+    cfg, params, prompts, args = serve_setup()
+    ecfg = fleet_ecfg(args)
+    dev = args.device
+    out = {"single_engine": {"sustained_tok_s": serve_stats["sustained_tok_s"],
+                             "mean_ttft_ms": serve_stats["mean_ttft_ms"]}}
+    counters = all_counters()
+    run_launches = {}
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def counted(name, stats, paged=True):
+        run_launches[name] = {k: c.launches for k, c in counters.items()}
+        check_route_launches(f"fleet/{name}", cfg, fleet_forwards(stats),
+                             run_launches[name], paged)
+
+    # (1) two in-process engines behind the Router
+    zero()
+    router = Router(cfg, params, ecfg, RouterConfig(n_hosts=2), device=dev)
+    try:
+        reqs, stats, wall = run_fleet(router, prompts, args)
+    finally:
+        router.close()
+    counted("router", stats)
+    out["router"] = fleet_summary("router", reqs, stats, wall, serve_reqs)
+    check(stats["router"]["affinity_hits"] > 0, "fleet/router: no affinity hit")
+
+    # (2) prefill:1,decode:1 with each ship's legs timed
+    roles = parse_disaggregate("prefill:1,decode:1", 2)
+    fleet = build_inproc_fleet(cfg, params, ecfg, 2, device=dev)
+    src, dst = fleet[roles.index("prefill")], fleet[roles.index("decode")]
+    ships = []
+    ship, recv = src.ship_blocks, dst.recv_blocks
+
+    def timed_ship(req_id):
+        t = time.perf_counter()
+        entry = ship(req_id)
+        if entry is not None:
+            t1 = time.perf_counter()
+            frame = encode_frame(entry, "json")
+            decode_frame(frame)
+            ships.append({"export_ms": 1e3 * (t1 - t), "frame_ms": 1e3 * (time.perf_counter() - t1),
+                          "frame_bytes": len(frame), "n_blocks": entry["payload"]["n_blocks"],
+                          "payload_bytes": sum(a.nbytes for a in
+                                               entry["payload"]["leaves"].values())})
+        return entry
+
+    def timed_recv(entry):
+        t = time.perf_counter()
+        got = recv(entry)
+        if got is not None:
+            ships[-1]["import_ms"] = 1e3 * (time.perf_counter() - t)
+        return got
+    src.ship_blocks, dst.recv_blocks = timed_ship, timed_recv
+    zero()
+    router = Router(transports=fleet, router_cfg=RouterConfig(roles=roles))
+    try:
+        reqs, stats, wall = run_fleet(router, prompts, args)
+        dflags = dict(stats["per_host"][roles.index("decode")]["opq"]["flags"])
+        census = {r: census_drained(f"disagg/{r}", t.engine.store)
+                  for r, t in zip(roles, fleet)}
+    finally:
+        router.close()
+    counted("disagg", stats)
+    r = stats["router"]
+    check(r["ships"] > 0 and r["ship_fallbacks"] == 0,
+          f"fleet/disagg: {r['ships']} ships, {r['ship_fallbacks']} fallbacks")
+    prefill_flags = {f: n for f, n in dflags.items() if f.startswith(("prefill", "draft_prefill"))}
+    check(not prefill_flags, f"fleet/disagg: prefill on the decode host {prefill_flags}")
+    pstats = stats["per_host"][roles.index("prefill")]
+    out["disagg"] = {**fleet_summary("disagg", reqs, stats, wall, serve_reqs),
+                     "ships": r["ships"], "shipped_blocks": r["shipped_blocks"],
+                     "ship_fallbacks": r["ship_fallbacks"], "decode_host_flags": dflags,
+                     "census_after_drain": census, "ship_legs": ships,
+                     "ship_ms_median": float(np.median([s["export_ms"] + s["frame_ms"]
+                                                        + s["import_ms"] for s in ships])),
+                     "prefill_batch_wait_ms": 1e3 * pstats["prefill_wait_s"]
+                     / max(pstats["prefill_batches"], 1)}
+
+    # (3) drain host 0 mid-run, every long stream handed off, on the kernel
+    # route and (3b) on the contiguous store, each with its continuation sweep
+    for name, route_ecfg, baseline in (
+            ("drain", ecfg, serve_reqs),
+            ("drain_contiguous", fleet_ecfg(args, cache_backend="contiguous",
+                                            paged_native=False, paged_kernel=False),
+             [types.SimpleNamespace(tokens=t) for t in contiguous_tokens])):
+        zero()
+        router = Router(cfg, params, route_ecfg,
+                        RouterConfig(n_hosts=2, handoff_threshold=0), device=dev)
+        try:
+            reqs, stats, wall = run_fleet(router, prompts, args, drain_at=FLEET_DRAIN_AT)
+        finally:
+            router.close()
+        counted(name, stats, paged=route_ecfg.paged_kernel)
+        check(stats["router"]["handoffs"] > 0, f"fleet/{name}: no handoff")
+        out[name] = {**fleet_summary(name, reqs, stats, wall, baseline),
+                     "drain_at": FLEET_DRAIN_AT, "handoffs": stats["router"]["handoffs"],
+                     "requeued": stats["router"]["requeued"]}
+        sweep = out[name]["sweep"] = sweep_continuations(
+            lambda: Engine(cfg, params, route_ecfg, device=dev), prompts[0], args.gen,
+            SWEEP_CUTS)
+        check(not sweep["divergent"], f"fleet/{name}: continuations leave the stream "
+              f"(cut, first differing index): {sweep['divergent']}")
+    launches = {k: sum(r[k] for r in run_launches.values()) for k in counters}
+    out["launches_by_run"] = run_launches
+
+    # (4) two worker processes on the card
+    spec = build_model_spec(args.arch, smoke=args.smoke, quantize=args.quantize,
+                            seed=args.seed, device=dev)
+    rpc_s = []
+    workers, boot_s = [], []
+    try:
+        for _ in range(2):
+            t = time.perf_counter()
+            workers.append(SubprocessTransport(spec, ecfg, connect_timeout_s=300.0))
+            boot_s.append(time.perf_counter() - t)
+        for w in workers:
+            # one short request per worker first: a fresh process's first
+            # steps pay its lazy CUDA and library set-up, which the parent's
+            # engines paid in the serve phase (batch invariance: no stream
+            # of the timed run changes)
+            eid = w.submit(prompts[0], 2)
+            deadline = time.monotonic() + 300
+            while not w.poll({eid: 0}).get(eid, {}).get("done"):
+                check(time.monotonic() < deadline, "fleet/procs: the warm-up never finished")
+                time.sleep(0.01)
+            w.poll({}, drop=[eid])
+            observe = w.metrics.observe
+
+            def timed(dt, observe=observe):
+                rpc_s.append(dt)
+                observe(dt)
+            w.metrics.observe = timed
+        router = Router(transports=workers)
+        reqs, stats, wall = run_fleet(router, prompts, args)
+        router.close()
+    finally:
+        for w in workers:
+            w.close()
+    check(all(w.proc.poll() is not None for w in workers), "fleet/procs: a worker outlived close")
+    out["procs"] = {**fleet_summary("procs", reqs, stats, wall, serve_reqs),
+                    "boot_s": boot_s, "pids": [w.pid for w in workers],
+                    "rpcs": len(rpc_s), "rpc_p50_ms": 1e3 * float(np.percentile(rpc_s, 50)),
+                    "rpc_p99_ms": 1e3 * float(np.percentile(rpc_s, 99)),
+                    "exited": [w.proc.returncode for w in workers]}
+
+    # (5) the HTTP API over the full-width engine
+    engine = Engine(cfg, params, ecfg, device=dev)
+    srv = serve_api(engine, port=0)
+
+    def post(body):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=300)
+        conn.request("POST", body.pop("path"), body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        return conn, conn.getresponse()
+    try:
+        prompt = [int(t) for t in prompts[0]]
+        conn, resp = post({"path": "/v1/completions", "prompt": prompt,
+                           "max_new_tokens": args.gen})
+        body = json.loads(resp.read().decode())
+        conn.close()
+        check(resp.status == 200 and body["tokens"] == list(serve_reqs[0].tokens),
+              "fleet/api: the HTTP completion differs from the serve phase's tokens")
+        conn, resp = post({"path": "/v1/completions", "prompt": prompt,
+                           "max_new_tokens": args.gen, "stream": True})
+        events = []
+        for raw in resp.fp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                if line == "data: [DONE]":
+                    break
+                events.append(json.loads(line[len("data: "):]))
+        conn.close()
+        *tok_events, done = events
+        check([e["index"] for e in tok_events] == list(range(args.gen))
+              and [e["token"] for e in tok_events] == body["tokens"]
+              and done.get("done") and done.get("n_tokens") == args.gen,
+              "fleet/api: the SSE stream is out of order or did not terminate")
+        conn, resp = post({"path": "/v1/classify", "prompt": prompt, "classes": [3, 17, 99]})
+        cls = json.loads(resp.read().decode())
+        conn.close()
+        check(resp.status == 200 and abs(sum(cls["probs"]) - 1.0) < 1e-6,
+              f"fleet/api: classify probabilities {cls.get('probs')}")
+    finally:
+        srv.close()
+        engine.close()
+    out["api"] = {"completion_tokens": len(body["tokens"]), "sse_events": len(tok_events),
+                  "classify_probs_sum": sum(cls["probs"])}
+    return launches, out
 
 
 # ------------------------------------------------------ the GPTPU path
@@ -1898,7 +2342,7 @@ def main() -> int:
         phase("batch_invariance", **check_batch_invariance(reqs))
         phase("reference", **check_reference())
         phase("decode_profile", card=card, **profile_decode())
-        stores = check_stores()
+        stores, contiguous_tokens = check_stores()
         phase("stores", card=card, **stores)
         int8_kv = check_int8_kv()
         phase("int8_kv", card=card, **int8_kv)
@@ -1910,6 +2354,10 @@ def main() -> int:
         phase("sampling", card=card, **sampling)
         spec_launches, spec = check_speculative()
         phase("speculative", card=card, **spec)
+        fleet_launches, fleet = check_fleet(reqs, serve_stats, contiguous_tokens)
+        phase("fleet", card=card, launches_note="in-process fleet runs only (router, "
+              "disagg, drain, drain_contiguous); worker processes count their own",
+              launches=fleet_launches, **fleet)
         gptpu = check_gptpu(dev)
         phase("gptpu", card=card, **gptpu)
         phase("gptpu_reference", lowering=gptpu["lowering"],
@@ -1926,9 +2374,10 @@ def main() -> int:
     by_path = {"serve": launches,
                "stores": summed(*(v for k, v in stores.items() if k in ROUTES)),
                "int8_kv": summed(*(v for k, v in int8_kv.items() if k in ROUTES)),
-               "chunked": summed(chunked["fused"], chunked["chunked"]),
+               "chunked": summed(chunked["fused"], chunked["chunked"],
+                                 chunked["fused_contiguous"]),
                "prefix_cache": prefix["launches"], "sampling": sampling_launches,
-               "speculative": spec_launches,
+               "speculative": spec_launches, "fleet": fleet_launches,
                "gptpu": gptpu["launches"], "ops": ops_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape

@@ -20,6 +20,16 @@ greedy; ``--stop IDS`` (repeatable) applies to every request.
 (``--draft-config``) proposes ``--spec-k`` tokens per slot and the target
 verifies the window in one forward.
 
+``--hosts N`` (N > 1) serves the same traffic through the multi-host Router
+over N in-process engines (request i carries session ``i % N``);
+``--host-procs`` runs each host as a worker process instead
+(``serving/host_main.py``, weights rebuilt from the same seed);
+``--drain-at K`` drains host 0 after K fleet steps; ``--disaggregate
+prefill:N,decode:M`` splits the fleet into prefill and decode roles, the
+decode hosts adopting shipped KV blocks. ``--api-port P`` serves the engine
+(or the fleet) over HTTP on port P instead of the synthetic traffic (0: a
+port the OS picks) until SIGINT or SIGTERM.
+
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions (use ``--smoke`` there: full width is 1.1B parameters). Weights are
 random, drawn from a ``torch.Generator`` seeded with ``--seed`` (the
@@ -31,6 +41,7 @@ of ``repro.launch.serve``'s single-host branch.
 from __future__ import annotations
 
 import argparse
+import signal
 import sys
 from typing import Dict, List, Tuple
 
@@ -38,15 +49,18 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
-from repro_torch.core import tensorizer as tz
-from repro_torch.models import init_model
 from repro_torch.models.model import count_qtensors
+from repro_torch.serving.api import serve_api
 from repro_torch.serving.engine import Engine, EngineConfig, Request
 from repro_torch.serving.metrics import (
-    format_memory_stats, format_sampling_stats, format_spec_stats,
+    format_memory_stats, format_router_stats, format_sampling_stats,
+    format_spec_stats, format_transport_stats,
 )
+from repro_torch.serving.router import Router, RouterConfig, parse_disaggregate
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.transport import (
+    SubprocessTransport, build_model_spec, realize_model_spec,
+)
 
 
 def quant_predicate(path, leaf) -> bool:
@@ -112,6 +126,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weight generator and the prompts, and the "
                          "base sampling seed (request i samples with seed + i)")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="1 = a single engine; > 1 serves through the multi-host "
+                         "Router (one engine per host, cache-affinity placement "
+                         "and load-aware spill)")
+    ap.add_argument("--host-procs", action="store_true",
+                    help="run each host as its own worker process (framed RPC over "
+                         "a local socket) instead of an in-process engine")
+    ap.add_argument("--drain-at", type=int, default=0,
+                    help="with --hosts > 1: drain host 0 after this many fleet "
+                         "steps (0 = never)")
+    ap.add_argument("--disaggregate", default="",
+                    help="with --hosts > 1: 'prefill:N,decode:M' (or 'N:M') role "
+                         "split; admissions go to prefill hosts and streams ship "
+                         "their KV blocks to decode hosts (requires --cache-backend "
+                         "paged --paged-native)")
+    ap.add_argument("--api-port", type=int, default=-1,
+                    help="serve the streaming HTTP API on this port instead of the "
+                         "synthetic traffic (0 = a port the OS picks, -1 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for tests)")
     return ap
@@ -133,17 +165,105 @@ def sampling_for(args, i: int):
 
 def build_model(arch: str, args, device):
     """The weights of ``arch`` from a generator seeded with --seed, W8A8 with
-    --quantize serve: ``(cfg, params)``."""
-    cfg = get_config(arch)
-    if args.smoke:
-        cfg = cfg.smoke()
-    cfg = cfg.replace(quantize=args.quantize)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = init_model(cfg, gen, device=device)
-    if args.quantize == "serve":
-        params = tz.quantize_params(params, predicate=quant_predicate)
-    return cfg, params
+    --quantize serve: ``(cfg, params)``, through the model spec a worker
+    process rebuilds them from (serving/transport.py)."""
+    return realize_model_spec(build_model_spec(
+        arch, smoke=args.smoke, quantize=args.quantize, seed=args.seed,
+        device=device))[:2]
+
+
+def _roles_for(args):
+    """--disaggregate -> the per-host role tuple (None when off)."""
+    return parse_disaggregate(args.disaggregate, args.hosts) if args.disaggregate else None
+
+
+def _spawn_fleet(args, ecfg, device) -> List[SubprocessTransport]:
+    """--host-procs: one worker process per host, each rebuilding the
+    weights from the same spec. A boot failure reaps the partial fleet."""
+    spec = build_model_spec(args.arch, smoke=args.smoke, quantize=args.quantize,
+                            seed=args.seed,
+                            draft_arch=args.draft_config if args.speculative else None,
+                            device=device)
+    fleet = []
+    try:
+        for _ in range(args.hosts):
+            fleet.append(SubprocessTransport(spec, ecfg))
+    except Exception:
+        for t in fleet:
+            t.close()
+        raise
+    print(f"[serve] spawned {len(fleet)} host processes "
+          f"(pids {[t.pid for t in fleet]})", flush=True)
+    return fleet
+
+
+def _serve_fleet(router: Router, prompts, args) -> Tuple[List, Dict]:
+    """The --hosts > 1 path: the synthetic traffic through the Router.
+    Requests cycle over ``--hosts`` session keys, so the second lap of
+    arrivals pins to the hosts holding those sessions (affinity hits);
+    ``--drain-at K`` drains host 0 after K fleet steps."""
+    requests = []
+    fleet_steps = 0
+
+    def tick(n):
+        nonlocal fleet_steps
+        for _ in range(n):
+            router.step()
+            fleet_steps += 1
+            if args.drain_at and fleet_steps == args.drain_at:
+                router.drain(0)
+                print(f"[serve] draining host 0 at fleet step {fleet_steps}", flush=True)
+
+    for i in range(args.requests):
+        requests.append(router.submit(prompts[i], args.gen, session=str(i % args.hosts),
+                                      sampling=sampling_for(args, i), strict=True))
+        tick(args.stagger_steps)
+    while router.has_work():
+        tick(1)
+
+    for r in requests:
+        trail = "->".join(str(h) for h in r.hosts)
+        handed = " (handoff)" if len(r.hosts) > 1 else ""
+        print(f"[serve] req {r.id}: prompt {len(r.prompt)} tok | host {trail}{handed} | "
+              f"{r.n_generated} tok", flush=True)
+    s = router.stats()
+    print(f"[serve] router: {format_router_stats(s)}", flush=True)
+    if any(t["kind"] != "in-process" for t in s["router"]["transport"]):
+        print(f"[serve] {format_transport_stats(s)}", flush=True)
+    if args.temperature > 0 or args.stop:
+        print(f"[serve] fleet {format_sampling_stats(s['fleet'])}", flush=True)
+    if args.speculative:
+        f = s["fleet"]
+        rate = f["accepted_tokens"] / max(f["proposed_tokens"], 1)
+        print(f"[serve] fleet speculative: {f['spec_rounds']} rounds + "
+              f"{f['draft_steps']} draft steps | {f['accepted_tokens']}/"
+              f"{f['proposed_tokens']} proposals accepted ({rate:.2f})", flush=True)
+    for h, hs in enumerate(s["per_host"]):
+        o = hs.get("opq", {})
+        drained = " [drained]" if router.is_drained(h) else ""
+        print(f"[serve] host {h}{drained}: {hs['completed']} done | "
+              f"{hs['decode_steps']} decode steps | "
+              f"{hs['preempted']} preempted, {hs['evicted']} evicted | "
+              f"cache {format_memory_stats(hs['cache'])} | "
+              f"opq {o.get('issued', 0)} instr, {o.get('affinity_hits', 0)} affinity hits",
+              flush=True)
+    print(f"[serve] sample generation (req 0): {requests[0].tokens}", flush=True)
+    return requests, s
+
+
+def _serve_http(target, args, front: str) -> None:
+    """--api-port: the HTTP API over ``target`` until SIGINT or SIGTERM;
+    closing flushes a terminal frame to every live stream."""
+    srv = serve_api(target, port=args.api_port)
+    print(f"[serve] HTTP API on {srv.url} ({front}): POST /v1/completions (SSE with "
+          f"\"stream\": true), /v1/embeddings, /v1/classify; GET /v1/stats /healthz",
+          flush=True)
+
+    def _graceful(signum, frame):
+        raise KeyboardInterrupt
+    signal.signal(signal.SIGTERM, _graceful)
+    srv.wait()
+    print("[serve] shutdown: streams flushed, closing the backend", flush=True)
 
 
 def run(argv=None) -> Tuple[List[Request], Dict]:
@@ -160,6 +280,24 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
         ap.error("--paged-kernel requires --paged-native")
     if args.prefix_cache and args.cache_backend != "paged":
         ap.error("--prefix-cache requires --cache-backend paged")
+    if args.hosts < 1:
+        ap.error("--hosts must be >= 1")
+    if args.drain_at and args.hosts < 2:
+        ap.error("--drain-at needs --hosts >= 2 (a handoff needs another host)")
+    if args.disaggregate:
+        if args.hosts < 2:
+            ap.error("--disaggregate needs --hosts >= 2 (a prefill host and a "
+                     "decode host)")
+        if args.cache_backend != "paged" or not args.paged_native:
+            ap.error("--disaggregate requires --cache-backend paged --paged-native "
+                     "(block shipping exports and imports pool blocks)")
+        if args.speculative:
+            ap.error("--disaggregate does not support --speculative (the draft's "
+                     "KV does not ship)")
+        try:
+            parse_disaggregate(args.disaggregate, args.hosts)
+        except ValueError as e:
+            ap.error(str(e))
     if args.spec_k < 1:
         ap.error("--spec-k must be >= 1")
     if args.speculative and args.paged_kernel:
@@ -205,6 +343,27 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
         paged_native=args.paged_native, paged_kernel=args.paged_kernel,
         prefill_chunk=args.prefill_chunk or None, prefix_cache=args.prefix_cache,
         speculative=args.speculative, spec_k=args.spec_k, draft=draft_cfg)
+    transports = _spawn_fleet(args, ecfg, device) if args.host_procs else None
+    if args.api_port >= 0 or args.hosts > 1 or transports is not None:
+        fleet = args.hosts > 1 or transports is not None
+        if fleet:
+            target = Router(cfg, params, ecfg,
+                            RouterConfig(n_hosts=args.hosts, roles=_roles_for(args)),
+                            draft_params=draft_params, transports=transports,
+                            device=device)
+        else:
+            target = Engine(cfg, params, ecfg, device=device, draft_params=draft_params)
+        try:
+            if args.api_port < 0:
+                return _serve_fleet(target, prompts, args)
+            front = (f"router, {args.hosts} host "
+                     f"{'processes' if transports else 'engines'}" if fleet
+                     else "single engine")
+            _serve_http(target, args, front)
+            return [], target.stats()
+        finally:
+            target.close()
+
     engine = Engine(cfg, params, ecfg, device=device, draft_params=draft_params)
     try:
         requests = []

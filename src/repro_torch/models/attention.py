@@ -7,14 +7,17 @@ with the speculative verify window (``verify_decode_attention``,
 Every score and value contraction runs in f32 against the cache-dtype K/V
 (int8 entries dequantized first, exactly as decode reads them back), the
 math of the reference's ``decode_attention``, so that a cache seeded by any
-admission route decodes the same tokens. Prefill's score products stay
-plain torch (the JAX package leaves them to XLA); float-KV block-native
-decode can run in the paged-attention kernel.
+admission route decodes the same tokens. Float-KV block-native decode can
+run in the paged-attention kernel. Every prefill query runs as a one-query
+decode contraction (``DecodeRows``: through the kernel on the engine's
+kernel route, plain otherwise), so a prefill row keeps the bits of the
+decode step at its position and a stream re-admitted by fused prefill (a
+drain handoff, a lost host) continues exactly.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,8 +27,6 @@ from repro_torch.models import layers as L
 
 NEG_INF = -1e30
 QMAX = 127.0
-# query rows per value-contraction GEMM in prefill (module doc of _attend)
-QUERY_TILE = 256
 
 
 def init_attn(gen: torch.Generator, cfg: ArchConfig, d: int, device=None) -> Dict:
@@ -52,12 +53,6 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """GQA: repeat kv heads to match q heads (B, S, KV, hd) -> (B, S, H, hd)."""
-    rep = n_heads // k.shape[2]
-    return k.repeat_interleave(rep, dim=2) if rep > 1 else k
-
-
 def _quantize_kv(k_new: torch.Tensor, v_new: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Int8 KV-cache quantization, per token and head: amax scales over hd,
     ``(k_q, v_q, k_scale, v_scale)`` with int8 entries (..., KV, hd) and f32
@@ -82,36 +77,131 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
-            cfg: ArchConfig, dtype: torch.dtype, query_tiles: bool = False) -> torch.Tensor:
-    """The contraction every route shares: f32 scores of q (B, Sq, H, hd)
-    against the head-expanded K (B, S, H, hd), masked where ``valid``
-    (broadcast to (B, H, Sq, S)) is False, a full-row softmax, and the f32
-    value contraction, cast to ``dtype``: (B, Sq, H, hd).
+def _layout(k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V rows (B, S, KV, hd) as the one-query contraction's f32 operands,
+    contiguous, one copy each: K transposed (B, KV, hd, S) and V
+    (B, KV, S, hd)."""
+    B, S, KV, hd = k.shape
+    kt = k.new_empty((B, KV, hd, S), dtype=torch.float32)
+    vg = v.new_empty((B, KV, S, hd), dtype=torch.float32)
+    kt.copy_(k.permute(0, 2, 3, 1))
+    vg.copy_(v.permute(0, 2, 1, 3))
+    return kt, vg
 
-    ``query_tiles`` (the prefill routes) runs the value contraction in
-    GEMMs of exactly QUERY_TILE query rows, the last one zero-padded, so a
-    row's sum over the keys is reduced in the same order however many query
-    rows share the call: on the H100, cuBLAS sums a row of a 16-row call in
-    another order than the same row of a 128- or 2048-row call, and the
-    suffix prefill's 16-row chunks would then differ from a cold
-    admission's single-shot rows. Calls of 256 or more rows agree (scores
-    and softmax agree at any row count), chip_smoke's ``chunked`` and
-    ``prefix_cache`` phases hold that."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32))
-    s = s * (cfg.hd ** -0.5)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    vf = v.to(torch.float32)
-    if not query_tiles:
-        return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(dtype)
-    Sq = w.shape[2]
-    pad = -Sq % QUERY_TILE
+
+# rows per call of the one-query contraction: decode, verify and prefill
+# calls all have exactly this many, zero-padded (:func:`_attend`)
+ATTEND_ROWS = 64
+
+
+def _attend(q: torch.Tensor, kt: torch.Tensor, vg: torch.Tensor, valid: torch.Tensor,
+            cfg: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
+    """The one-query contraction every plain route shares: f32 scores of q
+    (B, 1, H, hd) against K (``kt``, :func:`_layout`), each KV head's H/KV
+    query heads in one product (no head expansion), masked where ``valid``
+    (B, 1, 1, S) is False, a full-row softmax, and the f32 value
+    contraction against ``vg``, cast to ``dtype``: (B, 1, H, hd).
+
+    The rows run in calls of exactly ATTEND_ROWS, the last padded with zero
+    queries masked everywhere, so every call of a decode step, a verify
+    position or a prefill has one shape: cuBLAS picks its kernel, and with
+    it the order of a row's sums, by the call's shape (on the H100 a row's
+    bits change with the row count; scripts/torch_row_invariance.py
+    ``decode_rows``), and a prefill row keeps the bits of the decode step
+    at its position."""
+    B, _, H, hd = q.shape
+    KV, S = kt.shape[1], kt.shape[3]
+    rep, m = H // KV, ATTEND_ROWS
+    pad = -B % m
+    valid = valid.expand(B, 1, 1, S)
     if pad:
-        w = torch.cat([w, w.new_zeros(w.shape[:2] + (pad, w.shape[3]))], dim=2)
-    o = torch.cat([torch.einsum("bhqk,bkhd->bqhd", w[:, :, i:i + QUERY_TILE], vf)
-                   for i in range(0, Sq + pad, QUERY_TILE)], dim=1)
-    return o[:, :Sq].to(dtype)
+        q, kt, vg, valid = (torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+                            for t in (q, kt, vg, valid))
+    out = []
+    for lo in range(0, B + pad, m):
+        sc = torch.bmm(q[lo:lo + m].to(torch.float32).reshape(m * KV, rep, hd),
+                       kt[lo:lo + m].reshape(m * KV, hd, S))
+        sc = sc.reshape(m, KV, rep, S) * (cfg.hd ** -0.5)
+        w = torch.softmax(torch.where(valid[lo:lo + m], sc, torch.full_like(sc, NEG_INF)),
+                          dim=-1)
+        o = torch.bmm(w.reshape(m * KV, rep, S), vg[lo:lo + m].reshape(m * KV, S, hd))
+        out.append(o.reshape(m, 1, H, hd))
+    return torch.cat(out)[:B].to(dtype)
+
+
+class DecodeRows(NamedTuple):
+    """The decode step whose bits a prefill row keeps: its key length (the
+    cache row's, ``max_seq_len``) and, on the kernel route, the pool's block
+    size (None: the plain contraction)."""
+
+    length: int
+    block_size: Optional[int] = None
+
+
+def _pad_keys(x: torch.Tensor, length: int) -> torch.Tensor:
+    """K/V rows (B, S, KV, hd) zero-padded to ``length`` positions."""
+    B, S = x.shape[:2]
+    return torch.cat([x, x.new_zeros((B, length - S) + x.shape[2:])], dim=1)
+
+
+def decode_row_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        positions: torch.Tensor, rows: DecodeRows) -> Tuple[torch.Tensor, ...]:
+    """The paged-attention kernel's operands for prefill queries as one-query
+    decode rows (``rows.block_size`` set): query j of row b of q
+    (B, Sq, H, hd) becomes kernel row b * Sq + j with horizon
+    ``positions[b, j]``; row b's K/V (B, S, KV, hd), zero-padded to
+    ``rows.length`` positions, are the blocks of a scratch pool after a
+    zeroed null block, and every kernel row of b has b's table, decode's
+    width ``rows.length // rows.block_size`` (the kernel's plan reads only
+    the table width, block size and heads). Returns ``(q (B*Sq, H, hd) f32,
+    pool_k, pool_v, tables (B*Sq, width), horizons (B*Sq,))``."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    bs = rows.block_size
+    width = rows.length // bs
+
+    def pool(x):
+        return torch.cat([x.new_zeros((1, bs, KV, hd)),
+                          _pad_keys(x, rows.length).reshape(B * width, bs, KV, hd)])
+    tables = 1 + torch.arange(B * width, dtype=torch.int32, device=q.device).reshape(B, width)
+    return (q.reshape(B * Sq, H, hd).to(torch.float32).contiguous(), pool(k), pool(v),
+            tables.repeat_interleave(Sq, dim=0),
+            positions.to(torch.int32).reshape(B * Sq).contiguous())
+
+
+def _decode_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor, rows: DecodeRows, cfg: ArchConfig,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Every prefill query as a one-query decode contraction: query j of row
+    b of q (B, Sq, H, hd) attends positions ``<= positions[b, j]`` of that
+    row's K/V (B, S, KV, hd), zero-padded to the decode row's
+    ``rows.length`` keys, through the call decode makes, so each query's
+    sums run in the order of the decode step at its position and a stream
+    re-admitted by prefill (a drain handoff, a lost host) continues exactly.
+
+    On the kernel route (``rows.block_size``) that call is the
+    paged-attention kernel (:func:`decode_row_operands`). Otherwise it is
+    :func:`_attend` on one query per row against ``rows.length`` keys,
+    ATTEND_ROWS queries at a time, over K/V laid out once per call
+    (:func:`_layout`, the values decode's call lays out). Returns
+    (B, Sq, H, hd) in ``dtype``."""
+    B, Sq, H, hd = q.shape
+    if k.shape[1] > rows.length:
+        raise ValueError(f"{k.shape[1]} prefill positions exceed the decode row's "
+                         f"{rows.length}")
+    if rows.block_size is not None:
+        o = _paged_kernel(*decode_row_operands(q, k, v, positions, rows))
+        return o.reshape(B, Sq, H, hd).to(dtype)
+    n, m = B * Sq, ATTEND_ROWS
+    kt, vg = _layout(_pad_keys(k, rows.length), _pad_keys(v, rows.length))
+    qf = q.reshape(n, 1, H, hd)
+    valid = (torch.arange(rows.length, device=q.device)[None, None, None, :]
+             <= positions.reshape(n, 1, 1, 1))
+    b = torch.arange(n, device=q.device) // Sq
+    out = [_attend(qf[lo:lo + m], kt[b[lo:lo + m]], vg[b[lo:lo + m]], valid[lo:lo + m],
+                   cfg, dtype)
+           for lo in range(0, n, m)]
+    return torch.cat(out).reshape(B, Sq, H, hd)
 
 
 def _out(p: Dict, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -120,14 +210,16 @@ def _out(p: Dict, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def prefill_attention_with_kv(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-                              positions: torch.Tensor,
-                              int8_kv: bool = False) -> Tuple[torch.Tensor, ...]:
+                              positions: torch.Tensor, int8_kv: bool = False,
+                              decode_rows: Optional[DecodeRows] = None
+                              ) -> Tuple[torch.Tensor, ...]:
     """Full-sequence causal attention that also returns this layer's K/V rows
     as the cache stores them: ``(out, k_entry, v_entry)`` in the cache dtype,
     (B, S, KV, hd) each, or ``(out, k_q, v_q, k_scale, v_scale)`` on the
     int8-KV path (scales (B, S, KV)). Attends against the cache-dtype K/V,
-    the same math decode reads back."""
-    S = x.shape[1]
+    the same math decode reads back, each query as a one-query decode
+    contraction (:func:`_decode_rows`) of ``decode_rows``, by default the
+    plain one over the S prefill positions."""
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     if int8_kv:
         entries = _quantize_kv(k_new, v_new)
@@ -136,9 +228,7 @@ def prefill_attention_with_kv(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         entries = (k_new.to(L.cdtype(cfg)), v_new.to(L.cdtype(cfg)))
         k, v = entries
-    causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-    o = _attend(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
-                causal[None, None], cfg, x.dtype, query_tiles=True)
+    o = _decode_rows(q, k, v, positions, decode_rows or DecodeRows(x.shape[1]), cfg, x.dtype)
     return (_out(p, o, cfg),) + tuple(entries)
 
 
@@ -147,17 +237,20 @@ def chunked_prefill_attention_with_kv(
         chunk_start: int, k_acc: torch.Tensor, v_acc: torch.Tensor,
         k_sc_acc: Optional[torch.Tensor] = None,
         v_sc_acc: Optional[torch.Tensor] = None,
-        int8_kv: bool = False) -> torch.Tensor:
+        int8_kv: bool = False,
+        decode_rows: Optional[DecodeRows] = None) -> torch.Tensor:
     """One chunk of the chunked prefill-with-cache: write this chunk's K/V
     (x: (B, W, D)) into the cache-layout accumulators (B, S, KV, hd) at
     ``chunk_start``, IN PLACE (the caller owns them), and attend the chunk's
     queries over every accumulated row under the absolute causal mask.
 
-    Returns the attention output (B, W, D). Scores are (B, H, W, S) per chunk instead of (B, H, S, S). Each query's
-    softmax row is the single-shot path's row: rows not written yet lie in
-    later chunks, past every query here, so they are masked to weight 0."""
+    Returns the attention output (B, W, D). Scores are (B, H, W, S) per
+    chunk instead of (B, H, S, S). Each query's softmax row is the
+    single-shot path's row: rows not written yet lie in later chunks, past
+    every query here, so they are masked to weight 0. Each query runs as a
+    one-query decode contraction of ``decode_rows`` (by default the plain
+    one over the accumulators' S positions), as in the fused path."""
     W = x.shape[1]
-    S = k_acc.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     end = chunk_start + W
     if int8_kv:
@@ -172,10 +265,8 @@ def chunked_prefill_attention_with_kv(
         k_acc[:, chunk_start:end] = k_new.to(k_acc.dtype)
         v_acc[:, chunk_start:end] = v_new.to(v_acc.dtype)
         k, v = k_acc, v_acc
-    qpos = chunk_start + torch.arange(W, device=x.device)[:, None]
-    valid = torch.arange(S, device=x.device)[None, :] <= qpos
-    o = _attend(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
-                valid[None, None], cfg, x.dtype, query_tiles=True)
+    o = _decode_rows(q, k, v, positions, decode_rows or DecodeRows(k_acc.shape[1]), cfg,
+                     x.dtype)
     return _out(p, o, cfg)
 
 
@@ -249,8 +340,7 @@ def decode_attention(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
         _write_rows(cache_v, rows, pos, ok, v_new[:, 0])
         k, v = cache_k, cache_v
     valid = torch.arange(S, device=x.device)[None, None, None, :] <= index[:, None, None, None]
-    o = _attend(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
-                valid, cfg, x.dtype)
+    o = _attend(q, *_layout(k, v), valid, cfg, x.dtype)
     return _out(p, o, cfg)
 
 
@@ -309,8 +399,7 @@ def paged_decode_attention(p: Dict, x: torch.Tensor, pool_k: torch.Tensor,
             k, v = rows_of(pool_k), rows_of(pool_v)
         valid = (torch.arange(S, device=x.device)[None, None, None, :]
                  <= index[:, None, None, None])
-        o = _attend(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
-                    valid, cfg, x.dtype)
+        o = _attend(q, *_layout(k, v), valid, cfg, x.dtype)
     return _out(p, o, cfg)
 
 
@@ -323,15 +412,16 @@ def _attend_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    dtype: torch.dtype) -> torch.Tensor:
     """The verify window's contraction as W one-query contractions of
     exactly decode's shapes: query j of q (B, W, H, hd) attends keys
-    ``kpos <= positions[:, j]`` of the head-expanded K/V (B, S, H, hd),
+    ``kpos <= positions[:, j]`` of K/V (B, S, KV, hd),
     through the call :func:`decode_attention` makes. A row's score and
     value sums are then reduced in decode's order whatever W is (on the
     H100, cuBLAS may sum a row of a multi-row call in another order than
     the same row alone), so window position j keeps the bits of the decode
     step it stands for. Returns (B, W, H, hd) in ``dtype``."""
+    kt, vg = _layout(k, v)
     kpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
     return torch.cat([
-        _attend(q[:, j:j + 1].contiguous(), k, v,
+        _attend(q[:, j:j + 1].contiguous(), kt, vg,
                 kpos <= positions[:, j, None, None, None], cfg, dtype)
         for j in range(q.shape[1])], dim=1)
 
@@ -373,8 +463,7 @@ def verify_decode_attention(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
         v = _dequant(cache_v, cache_scales[1], x.dtype)
     else:
         k, v = cache_k, cache_v
-    o = _attend_window(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
-                       positions, cfg, x.dtype)
+    o = _attend_window(q, k, v, positions, cfg, x.dtype)
     return _out(p, o, cfg)
 
 
@@ -420,6 +509,5 @@ def paged_verify_attention(p: Dict, x: torch.Tensor, pool_k: torch.Tensor,
         v = _dequant(rows_of(pool_v), rows_of(cache_scales[1]), x.dtype)
     else:
         k, v = rows_of(pool_k), rows_of(pool_v)
-    o = _attend_window(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
-                       positions, cfg, x.dtype)
+    o = _attend_window(q, k, v, positions, cfg, x.dtype)
     return _out(p, o, cfg)

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tensorizer as tz
@@ -50,13 +51,16 @@ def pdot(x: torch.Tensor, w: Union[torch.Tensor, tz.QTensor],
 
 def apply_norm(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in f32, cast back to the input dtype."""
+    """RMSNorm in f32, cast back to the input dtype, in one fused
+    ``F.rms_norm``: it sums each row in an order fixed by the row's length,
+    whatever the number of rows, so a prefill row (S rows in the call) keeps
+    the bits of the decode row at its position (B rows) and a continuation
+    re-admitted by prefill continues the stream. PyTorch's CUDA
+    ``torch.mean`` picks its plan from the number of rows and would not."""
     if cfg.norm != "rmsnorm":
         raise ValueError(f"norm {cfg.norm!r} is not ported yet (ROADMAP queue 1 item 11)")
     xf = x.to(_DTYPES[cfg.norm_dtype])
-    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + eps) * p["scale"]
-    return out.to(x.dtype)
+    return F.rms_norm(xf, (xf.shape[-1],), p["scale"].to(xf.dtype), eps).to(x.dtype)
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

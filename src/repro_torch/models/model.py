@@ -9,7 +9,7 @@ axis (the JAX package scans it).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -94,7 +94,8 @@ def embed_tokens(params: Dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.T
 
 
 def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-            return_hidden: bool = False) -> Tuple[torch.Tensor, Any]:
+            return_hidden: bool = False,
+            decode_rows: Optional[A.DecodeRows] = None) -> Tuple[torch.Tensor, Any]:
     """Full-sequence forward over right-padded prompts ``tokens`` (B, S): the
     reference's ``forward(return_kv=True)``, the fused serving admission.
     Returns ``(logits, kv)``: logits (B, S, V_pad) and the per-layer K/V in
@@ -104,7 +105,10 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``return_hidden`` returns ``(logits, hidden)`` instead: the final-norm
     hidden states (B, S, D) the logits are projected from (the embedding
     surface of the non-generative serve step), no K/V. The logits are the
-    same bits either way."""
+    same bits either way. Each query attends as a one-query contraction of
+    ``decode_rows``, the decode row whose bits it keeps (by default the
+    plain one over the S positions; models/attention.py
+    ``prefill_attention_with_kv``)."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     int8_kv = cfg.kv_cache_dtype == "int8"
@@ -115,7 +119,7 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         lp = layer_params(params["layers"], i)
         h = L.apply_norm(lp["ln1"], x, cfg)
         o, *kv = A.prefill_attention_with_kv(lp["attn"], h, cfg, positions=positions,
-                                             int8_kv=int8_kv)
+                                             int8_kv=int8_kv, decode_rows=decode_rows)
         x = x + o
         h = L.apply_norm(lp["ln2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], h, cfg)

@@ -76,17 +76,21 @@ def init_paged_cache(cfg: ArchConfig, n_slots: int, n_blocks: int,
 # prefill-with-cache: one forward that seeds serving slots
 # ===========================================================================
 
-def prefill_with_cache(params: Dict, cfg: ArchConfig,
-                       tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+def prefill_with_cache(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+                       decode_rows: Optional[A.DecodeRows] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
     """Fused admission prefill: one full-sequence forward over right-padded
     prompts returning (logits, kv) with kv in cache layout, ready to scatter
-    into leased slots (serving/store.py ``write_slots``)."""
-    return M.forward(params, cfg, tokens)
+    into leased slots (serving/store.py ``write_slots``). ``decode_rows``:
+    the decode row whose one-query contraction each query runs
+    (models/attention.py; by default the plain one over the S positions)."""
+    return M.forward(params, cfg, tokens, decode_rows=decode_rows)
 
 
 def prefill_with_cache_chunked(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
-                               last_index: torch.Tensor,
-                               chunk: int) -> Tuple[torch.Tensor, Dict]:
+                               last_index: torch.Tensor, chunk: int,
+                               decode_rows: Optional[A.DecodeRows] = None
+                               ) -> Tuple[torch.Tensor, Dict]:
     """Chunked admission prefill: the right-padded bucket (B, S) goes
     through the stack ``chunk`` tokens at a time, each chunk attending over
     everything written so far (models/attention.py
@@ -97,13 +101,14 @@ def prefill_with_cache_chunked(params: Dict, cfg: ArchConfig, tokens: torch.Tens
     on the carried ``last_index`` hidden state, never on (B, S, V)."""
     if tokens.shape[1] % chunk:
         raise ValueError(f"chunk {chunk} must divide the bucket length {tokens.shape[1]}")
-    return _chunked_prefill(params, cfg, tokens, last_index, None, 0, chunk)
+    return _chunked_prefill(params, cfg, tokens, last_index, None, 0, chunk, decode_rows)
 
 
 def prefill_with_cache_suffix(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                               last_index: torch.Tensor, chunk: int, kv0: Dict,
-                              start_chunk: int,
-                              width: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+                              start_chunk: int, width: Optional[int] = None,
+                              decode_rows: Optional[A.DecodeRows] = None
+                              ) -> Tuple[torch.Tensor, Dict]:
     """Suffix admission prefill (shared-prefix cache hits): the chunked scan
     resumed at position ``start_chunk * chunk`` (``chunk``: the paged block
     size). ``kv0`` (L, B, S, ...) holds the cached prefix entries gathered
@@ -118,12 +123,13 @@ def prefill_with_cache_suffix(params: Dict, cfg: ArchConfig, tokens: torch.Tenso
     starts from the same accumulators. The engine keeps ``last_index`` at
     or after the start."""
     return _chunked_prefill(params, cfg, tokens, last_index, kv0, start_chunk * chunk,
-                            width or tokens.shape[1] - start_chunk * chunk)
+                            width or tokens.shape[1] - start_chunk * chunk, decode_rows)
 
 
 def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                      last_index: torch.Tensor, kv0: Optional[Dict], start: int,
-                     width: int) -> Tuple[torch.Tensor, Dict]:
+                     width: int, decode_rows: Optional[A.DecodeRows] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
     """The chunked and suffix prefill's shared body: zeroed (cold) or
     ``kv0``-seeded accumulators, then positions ``start..S - 1`` in pieces of
     ``width`` (the last may be shorter), one chunk body for both."""
@@ -150,7 +156,7 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             x = x + A.chunked_prefill_attention_with_kv(
                 lp["attn"], h, cfg, positions=positions, chunk_start=lo,
                 k_acc=accs["k"], v_acc=accs["v"], k_sc_acc=accs.get("k_scale"),
-                v_sc_acc=accs.get("v_scale"), int8_kv=int8_kv)
+                v_sc_acc=accs.get("v_scale"), int8_kv=int8_kv, decode_rows=decode_rows)
             h = L.apply_norm(lp["ln2"], x, cfg)
             x = x + L.apply_mlp(lp["mlp"], h, cfg)
         # carry each row's last-prompt-position hidden state
@@ -167,33 +173,22 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 # ===========================================================================
 
 def _decode_layers(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
-                   attend, norm=L.apply_norm) -> torch.Tensor:
+                   attend) -> torch.Tensor:
     """The decode stack shared by the contiguous and paged layouts:
     ``attend(layer_params, h, i, scales)`` runs layer i's attention (writing
-    its cache leaves in place), ``norm`` every RMSNorm. Returns the logits
-    (B, T, V_pad) of tokens (B, T): one position per slot at decode, the
-    window at verify."""
+    its cache leaves in place). Returns the logits (B, T, V_pad) of tokens
+    (B, T): one position per slot at decode, the window at verify (the
+    RMSNorm's row sums do not depend on T: layers.apply_norm)."""
     int8_kv = "k_scale" in cache
     x = M.embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
         lp = M.layer_params(params["layers"], i)
-        h = norm(lp["ln1"], x, cfg)
+        h = L.apply_norm(lp["ln1"], x, cfg)
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8_kv else None
         x = x + attend(lp["attn"], h, i, scales)
-        h = norm(lp["ln2"], x, cfg)
+        h = L.apply_norm(lp["ln2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], h, cfg)
-    return M._head(params, cfg, norm(params["final_ln"], x, cfg))
-
-
-def _norm_by_position(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """RMSNorm of a window (B, W, D) as W calls of decode's (B, 1, D)
-    shape: on the H100, PyTorch's row mean over D is summed in another order
-    when the call holds more rows (scripts/torch_row_invariance.py,
-    ``verify`` rows), and verify position j must keep the bits of the decode
-    step it stands for. The projections need no such care: their int8
-    products are exact and their activation scales per row."""
-    return torch.cat([L.apply_norm(p, x[:, j:j + 1].contiguous(), cfg)
-                      for j in range(x.shape[1])], dim=1)
+    return M._head(params, cfg, L.apply_norm(params["final_ln"], x, cfg))
 
 
 def decode(params: Dict, cfg: ArchConfig, cache: Dict,
@@ -249,10 +244,10 @@ def verify_window(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tens
     each row's last emitted token and W-1 draft proposals, all scored in one
     pass of the stack. Each layer writes the W new K/V entries into the
     rows, in place, and attends with a per-query causal horizon
-    (models/attention.py ``verify_decode_attention``); the row reductions
-    (attention contractions, RMSNorms) run at decode's one-position shapes,
-    so position j's logits are the bits :func:`decode` gives after
-    accepting j tokens.
+    (models/attention.py ``verify_decode_attention``); the attention
+    contractions run at decode's one-position shapes and the RMSNorms' row
+    sums are row-count invariant, so position j's logits are the bits
+    :func:`decode` gives after accepting j tokens.
     Dense family only (MoE targets: ROADMAP queue 1 item 11). Returns
     ``(logits (B, W, V_pad), cache)`` with a NEW index ``index + W``; the
     engine sets each slot's true position through the store's rollback."""
@@ -262,7 +257,7 @@ def verify_window(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tens
     def attend(lp, h, i, scales):
         return A.verify_decode_attention(lp, h, cache["k"][i], cache["v"][i], positions,
                                          cfg, cache_scales=scales)
-    return (_decode_layers(params, cfg, cache, tokens, attend, _norm_by_position),
+    return (_decode_layers(params, cfg, cache, tokens, attend),
             dict(cache, index=cache["index"] + window))
 
 
@@ -279,5 +274,5 @@ def verify_window_paged(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torc
     def attend(lp, h, i, scales):
         return A.paged_verify_attention(lp, h, cache["k"][i], cache["v"][i], tables,
                                         positions, cfg, cache_scales=scales)
-    return (_decode_layers(params, cfg, cache, tokens, attend, _norm_by_position),
+    return (_decode_layers(params, cfg, cache, tokens, attend),
             dict(cache, index=cache["index"] + window))

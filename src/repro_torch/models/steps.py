@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.models.attention import DecodeRows
 from repro_torch.models import serve as SV
 from repro_torch.serving import sampling as SMP
 
@@ -35,31 +36,35 @@ def _emit(cfg: ArchConfig, row: torch.Tensor, payload, sampling: Optional[Dict],
     return tok, payload, SMP.logprob_info(row, tok, cfg.vocab)
 
 
-def make_prefill_with_cache_step(cfg: ArchConfig) -> Callable:
+def make_prefill_with_cache_step(cfg: ArchConfig,
+                                 decode_rows: Optional[DecodeRows] = None) -> Callable:
     """Fused admission step: right-padded prompt bucket (B, S) and each row's
     last prompt position in; ``(first_tokens (B,), kv)`` out (plus the
-    logprob info with ``sampling``)."""
+    logprob info with ``sampling``). ``decode_rows``: the decode row whose
+    one-query contraction each query runs, for decode's bits in every row."""
     def prefill_step(params: Dict, tokens: torch.Tensor, last_index: torch.Tensor,
                      sampling: Optional[Dict] = None):
-        logits, kv = SV.prefill_with_cache(params, cfg, tokens)
+        logits, kv = SV.prefill_with_cache(params, cfg, tokens, decode_rows)
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         return _emit(cfg, logits[rows, last_index.long()], kv, sampling, last_index + 1)
     return prefill_step
 
 
-def make_chunked_prefill_step(cfg: ArchConfig, chunk: int) -> Callable:
+def make_chunked_prefill_step(cfg: ArchConfig, chunk: int,
+                              decode_rows: Optional[DecodeRows] = None) -> Callable:
     """Chunked admission step (long prompts): the fused step's contract,
     scanning the bucket ``chunk`` tokens at a time (models/serve.py
     ``prefill_with_cache_chunked``)."""
     def prefill_step(params: Dict, tokens: torch.Tensor, last_index: torch.Tensor,
                      sampling: Optional[Dict] = None):
-        row, kv = SV.prefill_with_cache_chunked(params, cfg, tokens, last_index, chunk)
+        row, kv = SV.prefill_with_cache_chunked(params, cfg, tokens, last_index, chunk,
+                                                decode_rows)
         return _emit(cfg, row, kv, sampling, last_index + 1)
     return prefill_step
 
 
-def make_suffix_prefill_step(cfg: ArchConfig, chunk: int,
-                             width: Optional[int] = None) -> Callable:
+def make_suffix_prefill_step(cfg: ArchConfig, chunk: int, width: Optional[int] = None,
+                             decode_rows: Optional[DecodeRows] = None) -> Callable:
     """Suffix admission step (shared-prefix cache hits): the chunked scan
     resumed at ``start_chunk`` (a Python int) blocks of ``chunk`` over
     accumulators seeded with ``kv0``, the cached prefix rows, the rest of the
@@ -68,7 +73,7 @@ def make_suffix_prefill_step(cfg: ArchConfig, chunk: int,
     def prefill_step(params: Dict, tokens: torch.Tensor, last_index: torch.Tensor,
                      kv0: Dict, start_chunk: int, sampling: Optional[Dict] = None):
         row, kv = SV.prefill_with_cache_suffix(params, cfg, tokens, last_index,
-                                               chunk, kv0, start_chunk, width)
+                                               chunk, kv0, start_chunk, width, decode_rows)
         return _emit(cfg, row, kv, sampling, last_index + 1)
     return prefill_step
 
@@ -121,13 +126,15 @@ def make_paged_verify_step(cfg: ArchConfig, window: int) -> Callable:
     return verify_step
 
 
-def make_embed_step(cfg: ArchConfig) -> Callable:
+def make_embed_step(cfg: ArchConfig,
+                    decode_rows: Optional[DecodeRows] = None) -> Callable:
     """Non-generative forward (embeddings, classification): the fused
-    prefill's bucketed forward, returning each row's last-position
-    final-norm hidden state and its last-position logits row, both f32; no
-    cache."""
+    prefill's bucketed forward (its ``decode_rows`` too), returning each
+    row's last-position final-norm hidden state and its last-position
+    logits row, both f32; no cache."""
     def embed_step(params: Dict, tokens: torch.Tensor, last_index: torch.Tensor):
-        logits, hidden = M.forward(params, cfg, tokens, return_hidden=True)
+        logits, hidden = M.forward(params, cfg, tokens, return_hidden=True,
+                                   decode_rows=decode_rows)
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         idx = last_index.long()
         return hidden[rows, idx].to(torch.float32), logits[rows, idx].to(torch.float32)

@@ -26,7 +26,16 @@ position) only (serving/sampling.py). Speculative decode proposes
 ``spec_k`` tokens per slot with a draft model and verifies the window in
 one target forward whose position j has the bits of the plain decode
 step after j accepted tokens, so greedy acceptance emits plain decode's
-stream, bit for bit.
+stream, bit for bit. Every prefill query attends as a one-query decode
+contraction, so a prefill row keeps the bits of the decode step at its
+position.
+
+The fleet (serving/router.py) drives an engine through its drain hooks:
+``lease_headroom``, ``evict_queued`` and ``preempt`` (a continuation
+elsewhere re-admits ``prompt + tokens so far`` by fused prefill and
+continues the stream exactly), and for prefill/decode disaggregation
+``extract_seeded``, ``release_exported`` and ``submit_seeded``, which
+ship a stream's exact cache blocks instead (paged store, not speculative).
 """
 
 from __future__ import annotations
@@ -42,9 +51,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.opq import OPQ, Buffer
 from repro_torch.models import steps as ST
+from repro_torch.models.attention import DecodeRows
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics, now
 from repro_torch.serving.sampling import (
-    GREEDY, TOP_LOGPROBS, SamplingParams, stack_params, stop_match,
+    GREEDY, TOP_LOGPROBS, SamplingParams, sampling_to_wire, stack_params, stop_match,
 )
 from repro_torch.serving.scheduler import Scheduler, bucket_for, default_buckets
 from repro_torch.serving.store import SlotStore, make_store
@@ -54,6 +64,9 @@ class RequestState(enum.Enum):
     QUEUED = "queued"
     RUNNING = "running"
     DONE = "done"
+    PREEMPTED = "preempted"    # pulled mid-flight by a drain or a ship: the
+                               # tokens so far stand, a continuation
+                               # elsewhere carries the rest
 
 
 @dataclasses.dataclass
@@ -63,6 +76,9 @@ class Request:
     max_new_tokens: int
     state: RequestState = RequestState.QUEUED
     tokens: List[int] = dataclasses.field(default_factory=list)
+    # emission time (metrics.now) of each entry of ``tokens``: the
+    # inter-token gaps of a free-running worker, whose polls arrive in bursts
+    token_ts: List[float] = dataclasses.field(default_factory=list)
     metrics: RequestMetrics = None
     sampling: Optional[SamplingParams] = None   # None == greedy
     # tokens generated in earlier segments of this logical stream: stop
@@ -82,6 +98,25 @@ class Request:
     @property
     def done(self) -> bool:
         return self.state == RequestState.DONE
+
+    def to_wire(self) -> Dict:
+        """The request as plain JSON-able data (serving/transport.py): enough
+        to re-admit the stream as a continuation elsewhere. Metrics stay
+        host-local."""
+        return {
+            "id": self.id,
+            "prompt": [int(t) for t in self.prompt],
+            "max_new_tokens": self.max_new_tokens,
+            "state": self.state.value,
+            "tokens": [int(t) for t in self.tokens],
+            "sampling": sampling_to_wire(self.sampling),
+            "stop_history": [int(t) for t in self.stop_history],
+            "finish_reason": self.finish_reason,
+            "want_logprobs": self.want_logprobs,
+            "logprobs": [float(v) for v in self.logprobs],
+            "top_logprobs": [[[int(t), float(v)] for t, v in row]
+                             for row in self.top_logprobs],
+        }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,16 +253,26 @@ class Engine:
             backend=self.ecfg.cache_backend, block_size=self.ecfg.block_size,
             n_blocks=self.ecfg.n_blocks, native=self.ecfg.paged_native,
             prefix_cache=self.ecfg.prefix_cache, device=self.device)
-        self._prefill = ST.make_prefill_with_cache_step(cfg)
+        # every prefill query attends as a one-query decode contraction of
+        # this engine's decode (through the paged-attention kernel on the
+        # kernel route, float KV), so a prefill row keeps the bits of the
+        # decode step at its position: re-prefilled continuations continue
+        rows = self.decode_rows = DecodeRows(
+            self.ecfg.max_seq_len,
+            self.ecfg.block_size if self.ecfg.paged_kernel and cfg.kv_cache_dtype != "int8"
+            else None)
+        self._prefill = ST.make_prefill_with_cache_step(cfg, rows)
         chunk = self.ecfg.prefill_chunk
-        self._prefill_chunked = ST.make_chunked_prefill_step(cfg, chunk) if chunk else None
+        self._prefill_chunked = (ST.make_chunked_prefill_step(cfg, chunk, rows)
+                                 if chunk else None)
         # the suffix of a prefix-cache hit runs in one piece, or in pieces
         # of prefill_chunk when that bounds the score memory
-        self._prefill_suffix = (ST.make_suffix_prefill_step(cfg, self.ecfg.block_size, chunk)
+        self._prefill_suffix = (ST.make_suffix_prefill_step(cfg, self.ecfg.block_size, chunk,
+                                                            rows)
                                 if self.ecfg.prefix_cache else None)
         self._decode = (ST.make_paged_decode_step(cfg, use_kernel=self.ecfg.paged_kernel)
                         if self.ecfg.paged_native else ST.make_decode_step(cfg))
-        self._embed = ST.make_embed_step(cfg)
+        self._embed = ST.make_embed_step(cfg, rows)
         self._owns_opq = opq is None and self.ecfg.use_opq
         self.opq = ((OPQ([self.device]) if self._owns_opq else opq)
                     if self.ecfg.use_opq else None)
@@ -243,7 +288,10 @@ class Engine:
             dcfg = self.ecfg.draft
             self.draft_store = make_store(dcfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
                                           device=self.device)
-            self._draft_prefill = ST.make_prefill_with_cache_step(dcfg)
+            # the draft's store is contiguous: its prefill rows keep the bits
+            # of its own decode steps, as the target's do
+            self._draft_prefill = ST.make_prefill_with_cache_step(
+                dcfg, DecodeRows(self.ecfg.max_seq_len))
             self._draft_decode = ST.make_decode_step(dcfg)
             self._draft_params_buf = Buffer(draft_params, name="draft-params")
         self._req_ids = itertools.count()
@@ -251,7 +299,13 @@ class Engine:
         # repetition penalty's input; it rides the slot lease like the cache
         self._presence = np.zeros((self.ecfg.max_slots, cfg.vocab_padded), bool)
         self.metrics = EngineMetrics()
+        # fleet counter reconciliation: the queued ids counted as deferred,
+        # and each slot's prefix-hit contribution (hits, blocks, positions);
+        # evict_queued, preempt and extract_seeded take back what admission
+        # counted, so a request re-admitted on another host counts once in
+        # the fleet's sums
         self._deferred_ids: set = set()
+        self._prefix_contrib: Dict[int, Tuple[int, int, int]] = {}
         self.completed: List[Request] = []
 
     # ------------------------------------------------------------ OPQ bridge
@@ -279,6 +333,11 @@ class Engine:
                     or prompt_len + max_new_tokens > self.ecfg.max_seq_len
                     or prompt_len > max(self.scheduler.buckets)
                     or not self.store.fits(prompt_len, max_new_tokens))
+
+    def lease_headroom(self, prompt_len: int, max_new_tokens: int) -> bool:
+        """Whether the store could lease this request right now. False means
+        admission would defer on backpressure: the router's cue to spill."""
+        return self.store.available_now(prompt_len, max_new_tokens)
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                sampling: Optional[SamplingParams] = None,
@@ -342,6 +401,8 @@ class Engine:
                 self.metrics.prefix_hits += 1
                 self.metrics.prefix_blocks_reused += info["shared_blocks"]
                 self.metrics.prefix_tokens_reused += info["prefill_start"]
+                self._prefix_contrib[slot] = (1, info["shared_blocks"],
+                                              info["prefill_start"])
         return ok
 
     def _prefix_group_key(self, slot: int, req: Request) -> int:
@@ -443,6 +504,7 @@ class Engine:
         (``lp[...][idx[j]]``: a row for prefill and decode, a (slot,
         position) pair for verify) and the slot's presence."""
         req.tokens.extend(toks)
+        req.token_ts.extend([now()] * len(toks))
         req.metrics.n_generated += len(toks)
         self._presence[slot, toks] = True
         if req.sampling is not None and not req.sampling.greedy:
@@ -578,8 +640,20 @@ class Engine:
             return True
         return False
 
+    def _unwind_prefix(self, slot: int) -> None:
+        """Take back a departing slot's prefix-hit counters: a preempted or
+        exported request is re-admitted elsewhere, where its prefix walk
+        counts afresh. Requests that complete here keep their counts."""
+        contrib = self._prefix_contrib.pop(slot, None)
+        if contrib is not None:
+            hits, blocks, toks = contrib
+            self.metrics.prefix_hits -= hits
+            self.metrics.prefix_blocks_reused -= blocks
+            self.metrics.prefix_tokens_reused -= toks
+
     def _retire(self, slot: int) -> None:
         req = self.scheduler.retire(slot)
+        self._prefix_contrib.pop(slot, None)
         self.store.reset(slot)
         self._presence[slot, :] = False
         if self.draft_store is not None:
@@ -588,6 +662,144 @@ class Engine:
         req.metrics.finish_s = now()
         self.metrics.completed += 1
         self.completed.append(req)
+
+    # ------------------------------------------------------------ drain hooks
+    # The router (serving/router.py) drains an engine by placing nothing more
+    # on it, pulling its queue (evict_queued) and preempting long in-flight
+    # generations for re-admission elsewhere; disaggregation ships a stream's
+    # cache blocks instead (extract_seeded / submit_seeded). All of them act
+    # at step boundaries only.
+
+    def evict_queued(self) -> List[Request]:
+        """Pull every not-yet-admitted request out of the FIFO, in order;
+        in-flight slots stay. The requests hold no cache state, so the
+        caller can re-submit them anywhere verbatim. A deferral mark leaves
+        with its request."""
+        out = list(self.scheduler.waiting)
+        self.scheduler.waiting.clear()
+        for req in out:
+            req.state = RequestState.PREEMPTED
+            if req.id in self._deferred_ids:
+                self._deferred_ids.discard(req.id)
+                self.metrics.admissions_deferred -= 1
+        self.metrics.evicted += len(out)
+        return out
+
+    def _release_slot(self, slot: int) -> None:
+        """A departing in-flight request's slot back to the scheduler, its
+        presence row cleared and its prefix-hit counts taken back."""
+        self.scheduler.retire(slot)
+        self._presence[slot, :] = False
+        self._unwind_prefix(slot)
+
+    def _in_flight(self, req_id: int) -> Tuple[int, Request]:
+        for slot, req in self.scheduler.active.items():
+            if req.id == req_id:
+                return slot, req
+        raise KeyError(f"request {req_id} is not in flight on this engine")
+
+    def preempt(self, req_id: int) -> Request:
+        """Remove an in-flight request at a step boundary: retire its slot,
+        scrub its cache rows (the draft store's too) and return it with the
+        tokens generated so far (>= 1). A continuation elsewhere with
+        ``prompt + tokens`` as its prompt regenerates the rest of the stream
+        where fused prefill keeps decode's bits."""
+        slot, req = self._in_flight(req_id)
+        self._release_slot(slot)
+        self.store.reset(slot)
+        if self.draft_store is not None:
+            self.draft_store.reset(slot)
+        req.state = RequestState.PREEMPTED
+        self.metrics.preempted += 1
+        return req
+
+    def _check_shippable(self, what: str) -> None:
+        if self.ecfg.speculative:
+            raise ValueError(f"{what} does not support speculative engines (the "
+                             f"draft store's state does not ship with the target's "
+                             f"blocks)")
+        if not hasattr(self.store, "export_blocks"):
+            raise ValueError(f"{what} requires the paged cache backend (cross-host "
+                             f"block shipping), got {self.store.kind!r}: use preempt "
+                             f"and a re-prefill continuation instead")
+
+    def extract_seeded(self, req_id: int) -> Tuple[Request, Dict]:
+        """Preempt an in-flight request AND export its slot's cache blocks
+        (``store.export_blocks``) under the cursor-named payload id
+        ``r<id>c<n_tokens>``. The blocks stay on the store's export ledger,
+        referenced, until ``release_exported``."""
+        self._check_shippable("extract_seeded")
+        slot, req = self._in_flight(req_id)
+        payload = self.store.export_blocks(slot, payload_id=f"r{req.id}c{len(req.tokens)}")
+        self._release_slot(slot)
+        req.state = RequestState.PREEMPTED
+        self.metrics.exported_slots += 1
+        self.metrics.exported_blocks += payload["n_blocks"]
+        return req, payload
+
+    def release_exported(self, payload_id: str) -> bool:
+        """Ack a shipped payload: the export ledger's blocks are released
+        (reset's decision per block). Idempotent; False for an unknown id."""
+        return self.store.release_exported(payload_id)
+
+    def submit_seeded(self, prompt: Sequence[int], max_new_tokens: int,
+                      tokens: Sequence[int], payload: Dict, *,
+                      sampling: Optional[SamplingParams] = None,
+                      stop_history: Sequence[int] = (),
+                      want_logprobs: Optional[int] = None,
+                      logprobs: Sequence[float] = (),
+                      top_logprobs: Sequence = ()) -> Optional[Request]:
+        """Admit a mid-flight stream from a shipped block payload: lease a
+        slot, import the payload (validated in full before any device write;
+        a bad one raises ValueError and leaves the slot clean) and join the
+        next decode step, with no prefill. ``tokens`` is the stream so far
+        (>= 1), counted against the original ``max_new_tokens``. None when
+        no slot is free or the lease is refused."""
+        self._check_shippable("submit_seeded")
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        tokens = [int(t) for t in tokens]
+        if not tokens:
+            raise ValueError("submit_seeded needs >= 1 generated token (the decode "
+                             "step feeds the stream's last emitted token)")
+        if len(tokens) >= max_new_tokens:
+            raise ValueError(f"stream already finished: {len(tokens)} generated tokens "
+                             f">= max_new_tokens {max_new_tokens}")
+        if len(prompt) + max_new_tokens > self.ecfg.max_seq_len:
+            raise ValueError(f"prompt={len(prompt)} + gen={max_new_tokens} exceeds "
+                             f"max_seq_len {self.ecfg.max_seq_len}")
+        if not self.scheduler.free:
+            return None
+        slot = self.scheduler.free[-1]
+        # a plain lease (no trie walk): imported blocks stay private to the
+        # slot, their content hash is the shipping host's concern
+        if not self.store.lease(slot, len(prompt), max_new_tokens):
+            return None
+        try:
+            self.store.import_blocks(slot, payload)
+        except Exception:
+            self.store.reset(slot)
+            raise
+        t = now()
+        req = Request(id=next(self._req_ids), prompt=prompt,
+                      max_new_tokens=max_new_tokens, state=RequestState.RUNNING,
+                      tokens=tokens, sampling=sampling, stop_history=tuple(stop_history),
+                      want_logprobs=want_logprobs,
+                      metrics=RequestMetrics(arrival_s=t, prompt_len=len(prompt),
+                                             admitted_s=t, first_token_s=t,
+                                             n_generated=len(tokens)))
+        req.logprobs = [float(v) for v in logprobs]
+        req.top_logprobs = [[(int(tk), float(v)) for tk, v in row] for row in top_logprobs]
+        # the seeded prefix was emitted and harvested on the shipping host:
+        # placeholders keep token_ts index-aligned with tokens
+        req.token_ts = [t] * len(tokens)
+        self.scheduler.admit_seeded(req)
+        self._presence[slot, :] = False
+        self._presence[slot, prompt] = True
+        self._presence[slot, tokens] = True
+        self.metrics.submitted += 1
+        self.metrics.imported_slots += 1
+        self.metrics.imported_blocks += payload["n_blocks"]
+        return req
 
     def step(self) -> None:
         """One engine iteration: join waiting requests into free slots, then

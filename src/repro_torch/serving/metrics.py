@@ -1,6 +1,6 @@
-"""Serving telemetry: per-request latency records, engine counters, and the
-one-line cache-memory summary — the port of ``repro.serving.metrics``'s
-single-host subset.
+"""Serving telemetry: per-request latency records, engine counters, the
+per-transport RPC counters of the fleet, and the one-line summaries — the
+port of ``repro.serving.metrics``.
 
 TTFT (arrival -> first token) splits into queue_wait_s (arrival ->
 admission) and prefill_s (admission -> first token: the fused prefill plus
@@ -61,6 +61,11 @@ class EngineMetrics:
     submitted: int = 0
     rejected: int = 0
     admissions_deferred: int = 0               # store lease refusals
+    evicted: int = 0                           # queued requests pulled by a
+                                               # router drain (re-placed
+                                               # elsewhere, never admitted)
+    preempted: int = 0                         # in-flight requests handed off
+                                               # by a router drain
     completed: int = 0
     tokens_generated: int = 0                  # prefill first tokens + every
                                                # token decode emitted (a
@@ -91,6 +96,13 @@ class EngineMetrics:
                                                # refcount instead of prefilled
     prefix_tokens_reused: int = 0              # prompt positions whose
                                                # prefill was skipped
+    exported_slots: int = 0                    # in-flight requests extracted
+                                               # with their cache blocks
+                                               # (disaggregation)
+    exported_blocks: int = 0                   # pool blocks serialized out
+    imported_slots: int = 0                    # requests admitted from a
+                                               # shipped payload (no prefill)
+    imported_blocks: int = 0                   # pool blocks adopted verbatim
     prefill_wait_s: float = 0.0                # wall time blocked on prefills
     seed_write_s: float = 0.0                  # wall time in admission writes
     steps: int = 0
@@ -122,6 +134,8 @@ class EngineMetrics:
             "submitted": self.submitted,
             "rejected": self.rejected,
             "admissions_deferred": self.admissions_deferred,
+            "evicted": self.evicted,
+            "preempted": self.preempted,
             "completed": self.completed,
             "tokens_generated": self.tokens_generated,
             "decode_steps": self.decode_steps,
@@ -140,12 +154,80 @@ class EngineMetrics:
             "prefix_hits": self.prefix_hits,
             "prefix_blocks_reused": self.prefix_blocks_reused,
             "prefix_tokens_reused": self.prefix_tokens_reused,
+            "exported_slots": self.exported_slots,
+            "exported_blocks": self.exported_blocks,
+            "imported_slots": self.imported_slots,
+            "imported_blocks": self.imported_blocks,
             "prefill_wait_s": self.prefill_wait_s,
             "seed_write_s": self.seed_write_s,
             "sustained_tok_s": self.sustained_tok_s(),
             "mean_queue_depth": self.queue_depth_sum / max(self.steps, 1),
             "mean_occupancy": self.occupancy_sum / max(self.steps, 1),
         }
+
+
+@dataclasses.dataclass
+class TransportMetrics:
+    """Per-transport RPC telemetry (serving/transport.py): every Router->host
+    call is one RPC, across a process boundary or not (in-process calls are
+    timed the same way, the baseline of the subprocess overhead)."""
+
+    rpcs: int = 0
+    retries: int = 0                           # idempotent calls re-sent
+                                               # after a timeout or drop
+    errors: int = 0                            # calls that raised
+                                               # TransportError
+    rpc_wait_s: float = 0.0                    # wall time inside RPCs
+
+    def observe(self, dt: float) -> None:
+        self.rpcs += 1
+        self.rpc_wait_s += dt
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "rpcs": self.rpcs,
+            "retries": self.retries,
+            "errors": self.errors,
+            "rpc_wait_s": self.rpc_wait_s,
+            "mean_rpc_us": 1e6 * self.rpc_wait_s / max(self.rpcs, 1),
+        }
+
+
+def format_transport_stats(stats: Dict) -> str:
+    """One-line fleet-transport summary from ``Router.stats()``: RPC volume
+    and latency, and the loss and recovery counters."""
+    r = stats["router"]
+    per_host = r.get("transport", [])
+    kinds = {t["kind"] for t in per_host}
+    rpcs = sum(t["rpcs"] for t in per_host)
+    retries = sum(t["retries"] for t in per_host)
+    errors = sum(t["errors"] for t in per_host)
+    mean_us = 1e6 * sum(t["rpc_wait_s"] for t in per_host) / rpcs if rpcs else 0.0
+    lost = f" | lost={r['lost']}" if r.get("lost") else ""
+    return (f"transport[{'/'.join(sorted(kinds))}]: {rpcs} rpcs "
+            f"({mean_us:.0f} us mean) | {retries} retries, {errors} errors | "
+            f"{r.get('hosts_lost', 0)} hosts lost -> "
+            f"{r.get('recovered', 0)} streams recovered{lost}")
+
+
+def format_router_stats(stats: Dict) -> str:
+    """One-line fleet summary from ``Router.stats()``: the placement ledger
+    (placed/affinity_hits, the cross-host analog of OPQ's per-lane counts),
+    drain and handoff activity, and the disaggregation ships."""
+    r = stats["router"]
+    f = stats["fleet"]
+    drained = f" | draining={r['draining']}" if r.get("draining") else ""
+    ships = ""
+    if r.get("roles"):
+        ships = (f" | disagg: {r.get('ships', 0)} ships "
+                 f"({r.get('shipped_blocks', 0)} blocks, "
+                 f"{r.get('ship_fallbacks', 0)} fallbacks)")
+    return (f"{r['hosts']} hosts | {r['placed']} placed "
+            f"({r['affinity_hits']} affinity hits, {r['spills']} spills) | "
+            f"{r['drains']} drains -> {r['handoffs']} handoffs + "
+            f"{r['requeued']} requeued{ships} | fleet: {f['completed']} done, "
+            f"{f['tokens_generated']} tok, {f['sustained_tok_s']:.1f} tok/s"
+            f"{drained}")
 
 
 def format_spec_stats(s: Dict) -> str:

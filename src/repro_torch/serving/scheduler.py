@@ -14,7 +14,7 @@ instead of the number of distinct prompt lengths seen in traffic.
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Dict, List, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -95,6 +95,17 @@ class Scheduler:
             key = (b, group_key(slot, req) if group_key is not None else 0)
             groups.setdefault(key, []).append((slot, req))
         return [(b, pairs) for (b, _), pairs in sorted(groups.items())]
+
+    def admit_seeded(self, request) -> Optional[int]:
+        """Place an externally seeded request (its cache already imported
+        into the slot, e.g. from a shipped block payload) straight into the
+        in-flight batch, bypassing the queue and prefill planning. Returns
+        the slot, or None when no slot is free."""
+        if not self.free:
+            return None
+        slot = self.free.pop()
+        self.active[slot] = request
+        return slot
 
     def decode_batch(self) -> Tuple[np.ndarray, np.ndarray]:
         """The in-flight batch as fixed-shape host arrays: ``tokens``

@@ -37,6 +37,14 @@ pressure unreferenced cached prefixes are evicted leaf first in LRU order.
 Every non-null block is in exactly one of {free, referenced, cached and
 unreferenced} (``debug_block_census``).
 
+Cross-host shipping (paged; prefill/decode disaggregation): ``export_blocks``
+serializes a slot's written blocks into a layout-tagged, checksummed payload
+and moves the slot's lease onto an export ledger (the blocks stay referenced
+until ``release_exported``); ``import_blocks`` validates such a payload and
+writes it verbatim into a freshly leased slot of another pool. bf16 leaves
+travel as their raw 16-bit words (numpy has no bfloat16) under the
+reference's layout tag, so the checksum runs over the reference's bytes.
+
 Leaf convention: ``index`` (B,) carries the slot on axis 0, ``tables``
 (B, MB) too; every other leaf on axis 1 (L, B, ...). ``pristine_value`` is
 the one definition of each leaf's empty fill. The stores write their
@@ -70,6 +78,30 @@ def pristine_value(name: str) -> float:
 
 def _kv_leaves(cache: Dict) -> Dict[str, torch.Tensor]:
     return {n: t for n, t in cache.items() if n not in _META}
+
+
+# a shipped leaf's numpy dtype, by the dtype its layout tag names: numpy has
+# no bfloat16, so bf16 travels as its raw 16-bit words
+_WIRE_DTYPES = {"bfloat16": np.dtype(np.uint16)}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _to_wire(t: torch.Tensor) -> np.ndarray:
+    """A cache leaf's bits as a host numpy array (bf16 as uint16 words)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _from_wire(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`_to_wire`: the same bits as a ``dtype`` tensor."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
 
 
 def _set_entries(cache: Dict, name: str, idx, values) -> Dict:
@@ -297,6 +329,12 @@ class PagedKVStore(SlotStore):
         self.prefix_tokens_reused = 0
         self.prefix_evictions = 0
         self.cow_forks = 0
+        # cross-host export ledger: payload id -> the blocks an exported
+        # slot's lease moved to. The ledger holds their refcount until
+        # release_exported, so an unacked block is never leased as fresh
+        self._exported: Dict[str, List[int]] = {}
+        self.blocks_exported = 0
+        self.blocks_imported = 0
 
     def alloc(self) -> Dict:
         return SV.init_paged_cache(self.cfg, self.n_slots, self.n_blocks,
@@ -585,6 +623,135 @@ class PagedKVStore(SlotStore):
         cache = _set_entries(self.cache, "tables", slot, 0)
         self.cache = _set_entries(cache, "index", slot, 0)
 
+    # ------------------------------------------------------ cross-host shipping
+
+    def _payload_crc(self, header: str, leaves: Dict[str, np.ndarray]) -> int:
+        """Checksum over the header and every leaf's raw bytes, in name
+        order. Import recomputes it and refuses a mismatch."""
+        crc = zlib.crc32(header.encode())
+        for name in sorted(leaves):
+            crc = zlib.crc32(np.ascontiguousarray(leaves[name]).tobytes(), crc)
+        return crc
+
+    def export_blocks(self, slot: int, *, payload_id: str) -> Dict:
+        """Serialize ``slot``'s written blocks (every position below its
+        index) for another host's pool and move the slot's lease onto the
+        export ledger: nothing is decremented, scrubbed or freed, so shared
+        prefix blocks stay intact and no exported block is re-leased while
+        the ship is in flight. The slot is cleared (table row zeroed, index
+        parked) and reusable at once. The blocks are gathered on the device
+        and each leaf copied to the host once."""
+        if payload_id in self._exported:
+            raise ValueError(f"payload id {payload_id!r} already exported")
+        blocks = self._leased.pop(slot, None)
+        if blocks is None:
+            raise KeyError(f"slot {slot} holds no lease to export")
+        self._slot_meta.pop(slot, None)
+        n_valid = self.slot_index(slot)
+        nb = math.ceil(n_valid / self.block_size)
+        idx = torch.as_tensor(blocks[:nb], dtype=torch.long, device=self.device)
+        leaves = {name: _to_wire(leaf[:, idx]) for name, leaf in _kv_leaves(self.cache).items()}
+        header = f"{payload_id}:{n_valid}:{nb}:{self.block_size}"
+        payload = {
+            "payload_id": payload_id,
+            "n_valid": n_valid,
+            "n_blocks": nb,
+            "layout": {
+                "block_size": self.block_size,
+                "leaves": {name: {"dtype": _dtype_name(leaf.dtype),
+                                  "shape": [int(leaf.shape[0]), nb] + [int(d) for d in
+                                                                       leaf.shape[2:]]}
+                           for name, leaf in _kv_leaves(self.cache).items()},
+            },
+            "leaves": leaves,
+            "crc": self._payload_crc(header, leaves),
+        }
+        self._exported[payload_id] = blocks
+        self.blocks_exported += nb
+        # clear the slot without scrubbing its blocks (the ledger owns them):
+        # what reset does with nothing to free, the null block's scrub
+        self._tables[slot, :] = 0
+        self._scrub_blocks([0])
+        cache = _set_entries(self.cache, "tables", slot, 0)
+        self.cache = _set_entries(cache, "index", slot, 0)
+        return payload
+
+    def release_exported(self, payload_id: str) -> bool:
+        """Settle one ledger entry: drop its reference on every block and
+        scrub and free the blocks that reach zero and the trie does not hold
+        (reset's decision per block). Idempotent: an unknown or released id
+        is a no-op returning False."""
+        blocks = self._exported.pop(payload_id, None)
+        if blocks is None:
+            return False
+        scrub: List[int] = []
+        for b in blocks:
+            assert self._ref[b] > 0, f"double-free of exported block {b}"
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                if b in self._block_node:
+                    self._nodes[self._block_node[b]]["tick"] = self._tick()
+                else:
+                    scrub.append(b)
+        if scrub:
+            self._scrub_free(scrub)
+        return True
+
+    def import_blocks(self, slot: int, payload: Dict) -> None:
+        """Adopt a shipped payload into ``slot``'s freshly leased blocks:
+        validate the layout tag, geometry, dtypes, lengths and checksum
+        against this pool, then write the shipped bits verbatim and set the
+        slot's index to the shipped valid length. Any mismatch raises
+        ValueError before a device write (the caller unwinds the lease with
+        ``reset``). Imported blocks stay private: never in the trie."""
+        blocks = self._leased.get(slot)
+        if blocks is None:
+            raise KeyError(f"slot {slot} holds no lease to import into")
+        layout = payload.get("layout") or {}
+        if int(layout.get("block_size", -1)) != self.block_size:
+            raise ValueError(f"shipped block_size {layout.get('block_size')} != pool "
+                             f"block_size {self.block_size}")
+        n_valid = int(payload["n_valid"])
+        nb = int(payload["n_blocks"])
+        if nb != math.ceil(n_valid / self.block_size):
+            raise ValueError(f"shipped payload claims {nb} blocks for n_valid {n_valid} "
+                             f"(block_size {self.block_size})")
+        if nb > len(blocks):
+            raise ValueError(f"shipped payload needs {nb} blocks but the lease holds "
+                             f"{len(blocks)}")
+        pool = _kv_leaves(self.cache)
+        leaves = payload.get("leaves") or {}
+        if set(leaves) != set(pool) or set(layout.get("leaves") or {}) != set(pool):
+            raise ValueError(f"shipped leaves {sorted(leaves)} != pool leaves "
+                             f"{sorted(pool)} (kv dtype/scale layout mismatch)")
+        arrays = {}
+        for name in sorted(pool):
+            arr = np.asarray(leaves[name])
+            tag = layout["leaves"][name]
+            want = [int(pool[name].shape[0]), nb] + [int(d) for d in pool[name].shape[2:]]
+            if (str(arr.dtype) != str(_WIRE_DTYPES.get(tag["dtype"], tag["dtype"]))
+                    or list(arr.shape) != [int(d) for d in tag["shape"]]):
+                raise ValueError(f"shipped leaf {name!r} does not match its layout tag "
+                                 f"(payload truncated or corrupted)")
+            if list(arr.shape) != want or tag["dtype"] != _dtype_name(pool[name].dtype):
+                raise ValueError(f"shipped leaf {name!r} {tag['dtype']}{list(arr.shape)} "
+                                 f"does not fit pool leaf "
+                                 f"{_dtype_name(pool[name].dtype)}{want}")
+            arrays[name] = arr
+        header = f"{payload['payload_id']}:{n_valid}:{nb}:{self.block_size}"
+        if self._payload_crc(header, arrays) != int(payload["crc"]):
+            raise ValueError(f"shipped payload {payload['payload_id']!r} failed its "
+                             f"checksum: refusing to import corrupt blocks")
+        idx = torch.as_tensor(blocks[:nb], dtype=torch.long, device=self.device)
+        for name, leaf in pool.items():
+            leaf[:, idx] = _from_wire(arrays[name], leaf.dtype).to(self.device)
+        if nb < self.blocks_per_slot:
+            # the reference pads the write to the table width with pristine
+            # rows aimed at the null block: the null block ends up scrubbed
+            self._scrub_blocks([0])
+        self.cache = _set_entries(self.cache, "index", slot, n_valid)
+        self.blocks_imported += nb
+
     # ---------------------------------------------------------- decode bridge
 
     def decode_cache(self) -> Dict:
@@ -677,8 +844,9 @@ class PagedKVStore(SlotStore):
 
     def debug_block_census(self) -> Dict[str, List[int]]:
         """The block-lifecycle partition: every non-null block is in exactly
-        one of ``free``, ``referenced`` (refcount > 0) or
-        ``cached_unreferenced`` (held only by the prefix trie)."""
+        one of ``free``, ``referenced`` (refcount > 0: leased, or held by
+        the export ledger until its ack) or ``cached_unreferenced`` (held
+        only by the prefix trie)."""
         return {
             "free": sorted(self._free),
             "referenced": [b for b in range(1, self.n_blocks) if self._ref[b] > 0],
@@ -705,6 +873,9 @@ class PagedKVStore(SlotStore):
             "blocks_used": int((self._ref > 0).sum()),
             "table_uploads": self.table_uploads,
             "slots": self.n_slots,
+            "blocks_exported": self.blocks_exported,
+            "blocks_imported": self.blocks_imported,
+            "blocks_export_pending": sum(len(bs) for bs in self._exported.values()),
         }
         if self.prefix_cache:
             out["prefix_cached_blocks"] = self._n_evictable()

@@ -1,5 +1,6 @@
-"""Shared harness of the engine-route parity tests (test_torch_routes.py,
-test_torch_prefill_routes.py, test_torch_speculative.py): the same
+"""Shared harness of the engine-route and fleet parity tests
+(test_torch_routes.py, test_torch_prefill_routes.py,
+test_torch_speculative.py, test_torch_router.py, test_torch_disagg.py): the same
 traffic through the reference Engine (repro.serving, run in a subprocess with
 ``XLA_FLAGS=--xla_allow_excess_precision=false``) and the port's
 (repro_torch.serving) on the same converted W8A8 weights.
@@ -151,3 +152,82 @@ def check_tokens(ref, got, dtype, label):
 def main(cases):
     with open(sys.argv[1], "wb") as f:
         pickle.dump(run_reference(cases), f)
+
+
+# ---------------------------------------------------------------------------
+# the fleet (test_torch_router.py, test_torch_disagg.py)
+# ---------------------------------------------------------------------------
+
+ROUTER_COUNTERS = ("placed", "affinity_hits", "spills", "rejected", "drains", "handoffs",
+                   "requeued", "hosts_lost", "recovered", "ships", "shipped_blocks",
+                   "ship_fallbacks")
+
+
+def drive_router(router, prompts, gens, *, sessions, stagger=1, drain_at=None):
+    """Submit request i (session ``sessions[i]``, logprobs top 2) and step
+    the fleet ``stagger`` times; with ``drain_at`` host 0 drains after that
+    many fleet steps. The same code drives the reference Router and the
+    port's. Returns tokens, top-2 margins, the router's counters, each
+    request's host trail and each host's OPQ flags."""
+    reqs, steps = [], 0
+    for i, (p, g) in enumerate(zip(prompts, gens)):
+        reqs.append(router.submit(p, g, session=sessions[i], want_logprobs=2, strict=True))
+        for _ in range(stagger):
+            router.step()
+            steps += 1
+            if drain_at is not None and steps == drain_at:
+                router.drain(0)
+    router.run_until_complete()
+    stats = router.stats()
+    router.close()
+    return {"tokens": [list(r.tokens) for r in reqs],
+            "margins": [[row[0][1] - row[1][1] for row in r.top_logprobs] for r in reqs],
+            "counters": {k: stats["router"][k] for k in ROUTER_COUNTERS},
+            "hosts": [list(r.hosts) for r in reqs],
+            "flags": [dict(h["opq"]["flags"]) for h in stats["per_host"]]}
+
+
+def fleet_reference(cases, run_case):
+    """Every fleet case (name -> case) through ``run_case(Router,
+    RouterConfig, EngineConfig, build_inproc_fleet, cfg, params, case)``
+    of the reference package on W8A8 weights, in both compute dtypes.
+    Runs in the subprocess; returns the results and the weights."""
+    import jax
+    from jax.sharding import AxisType
+    from repro.configs import get_config
+    from repro.core import tensorizer as jtz
+    from repro.distributed import sharding as shd
+    from repro.launch.serve import _quant_predicate
+    from repro.models import init_model
+    from repro.serving import EngineConfig, Router, RouterConfig
+    from repro.serving.transport import build_inproc_fleet
+    base = get_config("tinyllama-1.1b").smoke().replace(quantize="serve")
+    out = {}
+    with shd.use_mesh(jax.make_mesh((1,), ("data",), axis_types=(AxisType.Auto,))):
+        params = jtz.quantize_params(init_model(base, jax.random.PRNGKey(0)),
+                                     predicate=_quant_predicate)
+        out["params"] = _numpy_tree(params)
+        for name, case in cases.items():
+            for dtype in DTYPES:
+                cfg = base.replace(dtype=dtype, kv_cache_dtype=case["kv"])
+                out[name, dtype] = run_case(Router, RouterConfig, EngineConfig,
+                                            build_inproc_fleet, cfg, params, case)
+    return out
+
+
+def fleet_port(params, cases, run_case):
+    """The same cases through the port's fleet on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EngineConfig, Router, RouterConfig
+    from repro_torch.serving.transport import build_inproc_fleet
+    base = get_config("tinyllama-1.1b").smoke().replace(quantize="serve")
+
+    def cpu_router(*a, **kw):
+        return Router(*a, **kw, device="cpu") if "transports" not in kw else Router(*a, **kw)
+
+    def cpu_fleet(*a, **kw):
+        return build_inproc_fleet(*a, **kw, device="cpu")
+    return {(name, dtype): run_case(cpu_router, RouterConfig, EngineConfig, cpu_fleet,
+                                    base.replace(dtype=dtype, kv_cache_dtype=case["kv"]),
+                                    params, case)
+            for name, case in cases.items() for dtype in DTYPES}

@@ -264,6 +264,71 @@ def test_chunked_prefill_equals_fused_prefill(params, cfg):
                 assert torch.equal(ckv[name], fkv[name]), (dt, kv, name)
 
 
+# the engine's prefill rows: a 32-position decode row, plain (contiguous,
+# bridge, native plain, every int8 route) or laid out as the kernel route's
+# 8-position blocks (the paged-attention kernel's plain version on the CPU)
+ENGINE_ROWS = {"plain": TA.DecodeRows(32), "kernel": TA.DecodeRows(32, 8)}
+
+
+@pytest.mark.parametrize("rows,kv", [("plain", "bfloat16"), ("plain", "int8"),
+                                     ("kernel", "bfloat16")])
+def test_engine_rows_match_jax(ref, cfg, params, rows, kv):
+    """The engine's prefill formulation, each query a one-query decode row
+    of a 32-position row, against the JAX chunked scan (the causal prefill
+    with the reference's math); inside the port, the chunked scan with
+    those rows equals the fused prefill's bitwise and both equal the default
+    rows' first-token row and entries within the f32 tolerance."""
+    i = _inputs()
+    c = cfg.replace(kv_cache_dtype=kv)
+    toks, last = _t(i["tokens"]), _t(i["last"])
+    dr = ENGINE_ROWS[rows]
+    jrow, jkv = ref["chunked", kv]
+    row, got = TSV.prefill_with_cache_chunked(params, c, toks, last, 8, dr)
+    _close(row, jrow)
+    for name, w in jkv.items():
+        if w.dtype == np.int8:                        # codes of f32-close inputs
+            assert np.abs(got[name].numpy().astype(int) - w.astype(int)).max() <= 1
+            assert (got[name].numpy() != w).mean() < 0.01
+        else:
+            _close(got[name], w)
+    logits, fkv = TSV.prefill_with_cache(params, c, toks, dr)
+    assert torch.equal(row, logits[torch.arange(2), last].float())
+    for name in fkv:
+        assert torch.equal(got[name], fkv[name]), name
+    drow, _ = TSV.prefill_with_cache_chunked(params, c, toks, last, 8)
+    _close(row, drow.numpy())
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_plain_prefill_rows_are_decode_calls(cfg, batch):
+    """The plain prefill formulation runs its rows ATTEND_ROWS at a time
+    (80 rows here: a full call and a padded one), as a decode step's call
+    runs its ``batch`` rows: each query's output equals bitwise the
+    one-query contraction of a decode call of ``batch`` rows whose first
+    row is that query against its row's K/V (zero-padded to the decode
+    row) with its position as the horizon, whatever the other rows hold."""
+    rng = np.random.default_rng(4)
+    B, Sq, L = 2, 40, 48
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q, k, v = (_t(rng.normal(size=(B, Sq, n, hd)).astype(np.float32))
+               for n in (H, KV, KV))
+    pos = torch.stack([torch.arange(Sq), 5 + torch.arange(Sq)]).to(torch.int32)
+    got = TA._decode_rows(q, k, v, pos, TA.DecodeRows(L), cfg, torch.float32)
+    kpad, vpad = (torch.cat([t, t.new_zeros((B, L - Sq, KV, hd))], dim=1) for t in (k, v))
+    others = [_t(rng.normal(size=(batch - 1,) + shape).astype(np.float32))
+              for shape in ((1, H, hd), (L, KV, hd), (L, KV, hd))]
+    kpos = torch.arange(L)
+    for b in range(B):
+        for j in range(Sq):
+            dq = torch.cat([q[b, j][None, None], others[0]])
+            dk = torch.cat([kpad[b][None], others[1]])
+            dv = torch.cat([vpad[b][None], others[2]])
+            horizon = torch.tensor([int(pos[b, j])] + [L - 1] * (batch - 1))
+            want = TA._attend(dq, *TA._layout(dk, dv),
+                              (kpos[None, :] <= horizon[:, None])[:, None, None],
+                              cfg, torch.float32)
+            assert torch.equal(got[b, j], want[0, 0]), (b, j)
+
 if __name__ == "__main__":
     with open(sys.argv[1], "wb") as f:
         pickle.dump(_reference(), f)

@@ -46,6 +46,27 @@ def test_no_plain_fallback_in_except(path):
                 f"version from an except clause")
 
 
+FLEET = [REPO / "src" / "repro_torch" / "serving" / f"{m}.py"
+         for m in ("transport", "host_main", "router", "api")]
+
+
+@pytest.mark.parametrize("path", FLEET, ids=lambda p: p.name)
+def test_fleet_excepts_never_change_the_route(path):
+    """A transport error marks a host lost; no ``except`` of the fleet
+    modules serves a request another way: none names the CPU or a device,
+    or builds an engine or a fleet."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert path in FILES                  # the import guard covers it too
+    for handler in (n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)):
+        for node in ast.walk(handler):
+            name = getattr(node, "attr", getattr(node, "id", ""))
+            text = node.value if isinstance(node, ast.Constant) else None
+            assert not (isinstance(text, str) and "cpu" in text.lower()), (
+                f"{path.name}:{handler.lineno} names the CPU in an except clause")
+            assert name not in ("device", "Engine", "build_inproc_fleet", "to", "cpu"), (
+                f"{path.name}:{handler.lineno} changes the route in an except clause")
+
+
 def test_guard_has_teeth():
     assert _forbidden("jax.numpy") and _forbidden("repro.models")
     assert _forbidden("repro") and not _forbidden("repro_torch.models")

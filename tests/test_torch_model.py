@@ -44,6 +44,7 @@ from repro.launch.serve import _quant_predicate
 from repro.models import init_model
 from repro.models import serve as JSV
 from repro_torch.configs import get_config as tget_config
+from repro_torch.models import attention as TA
 from repro_torch.models import serve as TSV
 from repro_torch.models import steps as TST
 from repro_torch.testing.params import params_from_numpy
@@ -130,6 +131,22 @@ def test_prefill_logits_and_kv(case):
     _close(logits.float().numpy(), case["logits"], dt)
     for name in ("k", "v"):
         assert kv[name].shape == case["kv"][name].shape   # (L, B, S, KV, hd)
+        _close(kv[name].float().numpy(), case["kv"][name], dt)
+
+
+@pytest.mark.parametrize("rows", [(24, None), (24, 8)], ids=["plain", "kernel"])
+def test_prefill_engine_rows_match_jax(case, rows):
+    """The engine's prefill formulation against the reference prefill: each
+    query a one-query decode row of a 24-position row (an engine's
+    max_seq_len past the 16 prompt positions), plain or through the kernel
+    route's 8-position blocks (the paged-attention kernel's plain version
+    on the CPU), under test_prefill_logits_and_kv's tolerances."""
+    logits, kv = TSV.prefill_with_cache(case["params"], case["tcfg"],
+                                        torch.from_numpy(case["tokens"]),
+                                        TA.DecodeRows(*rows))
+    dt = case["tcfg"].dtype
+    _close(logits.float().numpy(), case["logits"], dt)
+    for name in ("k", "v"):
         _close(kv[name].float().numpy(), case["kv"][name], dt)
 
 

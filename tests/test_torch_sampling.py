@@ -26,6 +26,14 @@
     margin is below that may then differ, where greedy streams are held to
     the reference by tests/_torch_parity.py's margin rule. Inside the port,
     each seeded stream served alone equals its stream in the batch.
+  * W8A8 sampled streams — the same mix without stops on W8A8 weights, the
+    main path's route: each request equals the reference's up to the first
+    step whose decision lies within the logit deviation of flipping (a
+    sampled step: the Gumbel-perturbed top-2 margin, and the top-k and
+    top-p boundaries; a greedy step: the top-2 logit margin). The deviation
+    is measured, the largest |port - reference| of the teacher-forced
+    logits of every request's stream; at least MIN_COMPARED_W8A8 tokens of
+    each request are compared.
   * embed — the port's ``Engine.embed`` against the reference's: embedding
     and logits within EMBED_TOL (the reference's embed forward is its
     training attention, the port's its prefill's).
@@ -372,6 +380,19 @@ def _reference():
             out[name] = _serve_case(Engine, EngineConfig, SamplingParams,
                                     base.replace(kv_cache_dtype=kv), params, ecfg,
                                     *TRAFFIC[traffic], stops[traffic])
+        # W8A8: the served streams and each stream's teacher-forced logits
+        from repro.core import tensorizer as jtz
+        from repro.launch.serve import _quant_predicate
+        from repro.models import serve as JSV
+        qcfg = base.replace(quantize="serve")
+        qparams = jtz.quantize_params(params, predicate=_quant_predicate)
+        out["w8a8_params"] = P._numpy_tree(qparams)
+        w8 = _serve_case(Engine, EngineConfig, SamplingParams, qcfg, qparams,
+                         ROUTES[W8A8_ROUTE][0], *TRAFFIC["plain"], ())
+        w8["forced"] = [np.asarray(JSV.prefill_with_cache(
+            qparams, qcfg, {"tokens": jnp.asarray(seq[None])})[0][0], np.float32)
+            for seq in _forced_sequences(TRAFFIC["plain"][0], w8["tokens"])]
+        out["w8a8"] = w8
         eng = Engine(base, params, EngineConfig(**P.BASE_ECFG))
         out["embed"] = [{k: np.asarray(v) for k, v in eng.embed(p).items()}
                         for p in EMBED_PROMPTS]
@@ -430,6 +451,98 @@ def test_engine_streams_stops_and_logprobs_match_reference(references, ports, na
         _check_top_ids(g_ids, r_ids, r_vals)
 
 
+W8A8_ROUTE = "native_kernel"
+MIN_COMPARED_W8A8 = 9        # tokens of each request, as P.MIN_COMPARED in f32
+GUMBEL_SLACK = 1e-5          # |port - JAX| of the Gumbel noise (GUMBEL_ULPS eps)
+
+
+def _forced_sequences(prompts, streams):
+    """Each request's prompt and every emitted token but the last: the
+    teacher-forced input whose rows ``len(prompt) - 1 ...`` are the logits
+    rows the stream's tokens were chosen from."""
+    return [np.concatenate([p, np.asarray(t[:-1], np.int32)]).astype(np.int32)
+            for p, t in zip(prompts, streams)]
+
+
+def _decision_margins(row, kw, presence, position):
+    """How far one sampling decision on logits ``row`` (V,) is from
+    flipping, in logits of the transformed row ``l`` (the sampler's
+    repetition penalty and temperature, reference ``sample_tokens``): the
+    top-2 margin of ``l + gumbel`` over the allowed ids, and the top-k and
+    top-p boundaries' distances. A greedy request: the top-2 logit margin.
+    Returns (margin, scale): a logit deviation d moves ``l`` by at most
+    ``d * scale``."""
+    row = row.astype(np.float64)
+    if kw.get("temperature", 0.0) <= 0.0:
+        top = np.sort(row)[::-1]
+        return top[0] - top[1], 1.0
+    rp = kw.get("repetition_penalty", 1.0)
+    temp = max(kw["temperature"], 1e-6)
+    pen = np.where(row > 0, row / rp, row * rp)
+    lt = np.where(presence, pen, row) / temp
+    srt = np.sort(lt)[::-1]
+    k = kw.get("top_k", 0)
+    in_k = np.arange(len(srt)) < k if k > 0 else np.ones(len(srt), bool)
+    e = np.where(in_k, np.exp(srt - srt[0]), 0.0)
+    probs = e / e.sum()
+    before = np.cumsum(probs) - probs
+    keep = in_k & (before < kw.get("top_p", 1.0))
+    keep[0] = True
+    allowed = lt >= srt[keep].min()
+    g = S.gumbel(S.fold_in(torch.tensor([kw["seed"]]), torch.tensor([position])),
+                 len(row))[0].numpy().astype(np.float64)
+    pert = np.sort(np.where(allowed, lt + g, -np.inf))[::-1]
+    margins = [pert[0] - pert[1] - GUMBEL_SLACK]
+    if k > 0:
+        margins.append(srt[k - 1] - srt[k])
+    if kw.get("top_p", 1.0) < 1.0:
+        margins.append(np.abs(before[in_k] - kw["top_p"]).min())
+    return min(margins), max(rp, 1.0) / temp
+
+
+@pytest.fixture(scope="module")
+def w8a8(references):
+    from repro_torch.models import serve as SV
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    from repro_torch.testing.params import params_from_numpy
+    qparams = params_from_numpy(references["w8a8_params"], device="cpu")
+    qcfg = _port_cfg().replace(quantize="serve")
+    got = _serve_case(Engine, EngineConfig, SamplingParams, qcfg, qparams,
+                      ROUTES[W8A8_ROUTE][0], *TRAFFIC["plain"], (), device="cpu")
+    ref = references["w8a8"]
+    forced = _forced_sequences(TRAFFIC["plain"][0], ref["tokens"])
+    dev = max(float(np.abs(SV.prefill_with_cache(qparams, qcfg, torch.from_numpy(seq[None]))
+                           [0][0].float().numpy() - r).max())
+              for seq, r in zip(forced, ref["forced"]))
+    return ref, got, dev
+
+
+def test_w8a8_sampled_streams_match_reference_by_margin(w8a8):
+    """W8A8 weights, the CLI's sampling mix (even requests sampled, odd
+    greedy): each stream equals the reference's up to the first decision
+    within twice the measured logit deviation of flipping, and at least
+    MIN_COMPARED_W8A8 tokens of each are compared."""
+    ref, got, dev = w8a8
+    prompts = TRAFFIC["plain"][0]
+    assert got["sampled_tokens"] > 0 and dev > 0.0
+    for i, (p, r, g) in enumerate(zip(prompts, ref["tokens"], got["tokens"])):
+        kw = _sampling_kw(i, ())
+        presence = np.zeros(ref["forced"][i].shape[-1], bool)
+        presence[p] = True
+        n = len(r)
+        for t, tok in enumerate(r):
+            margin, scale = _decision_margins(ref["forced"][i][len(p) - 1 + t], kw, presence,
+                                              len(p) + t)
+            if margin < 2 * dev * scale:
+                n = t
+                break
+            presence[tok] = True
+        print(f"w8a8 request {i}: compared {n} of {len(r)} tokens (deviation {dev:.3g})")
+        assert n >= MIN_COMPARED_W8A8, (i, n, dev)
+        assert g[:n] == r[:n], (i, g, r)
+        assert len(g) == len(r)
+
+
 def test_greedy_logprob_is_the_top_logprob(ports):
     """A greedy token's logprob is the largest of its row."""
     got = ports["native_kernel"]
@@ -462,7 +575,8 @@ def test_embed_matches_reference_and_the_prefill_row(references, params):
     from repro_torch.serving import Engine, EngineConfig
     cfg = _port_cfg()
     eng = Engine(cfg, params, EngineConfig(**P.BASE_ECFG), device="cpu")
-    prefill = ST.make_prefill_with_cache_step(cfg)
+    # the engine's fused prefill: each query as its decode contraction
+    prefill = ST.make_prefill_with_cache_step(cfg, eng.decode_rows)
     for prompt, ref in zip(EMBED_PROMPTS, references["embed"]):
         got = eng.embed(prompt)
         assert got["embedding"].shape == (cfg.d_model,) and got["logits"].shape == (cfg.vocab,)
@@ -474,7 +588,7 @@ def test_embed_matches_reference_and_the_prefill_row(references, params):
         toks[0, :len(prompt)] = prompt
         first, _ = prefill(params, torch.from_numpy(toks),
                            torch.tensor([len(prompt) - 1], dtype=torch.int32))
-        logits, _ = SV.prefill_with_cache(params, cfg, torch.from_numpy(toks))
+        logits, _ = SV.prefill_with_cache(params, cfg, torch.from_numpy(toks), eng.decode_rows)
         assert np.array_equal(got["logits"], logits[0, len(prompt) - 1, :cfg.vocab].numpy())
         assert int(np.argmax(got["logits"])) == int(first[0])
     stats = eng.stats()
