@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, one JSON line each:
+Run from the root of a checkout. Phases, one JSON line each (with the
+seconds since the previous line):
 
   1. card     — name and power limit (nvidia-smi), device count
   2. build    — nvcc builds of every kernel under src/repro_torch/kernels/csrc,
@@ -11,8 +12,9 @@ Run from the root of a checkout. Phases, one JSON line each:
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 its paths' shapes (qgemm: int32-exact and the bf16 pdot
                 epilogue bitwise, in both regimes of its plan and both split
-                paths, ragged shapes and -128 operands included; paged
-                attention: partial leases, horizons on split boundaries, at
+                paths, ragged shapes and -128 operands included, and at
+                every projection of the other served configs; paged
+                attention: their hd-128 head layouts, partial leases, horizons on split boundaries, at
                 0, at the last cell and past S, the 2048-token context,
                 poisoned cells, and the engine's prefill rows at the serve
                 batch's and the chunked phase's shapes, 1e-5;
@@ -76,7 +78,8 @@ Run from the root of a checkout. Phases, one JSON line each:
                 row bitwise the fused prefill's; tok/s, TTFT, the sampled
                 and greedy decode step and the sampler's device time
  14. speculative — greedy draft-verify decode (spec_k = 4) on the serve
-                traffic, contiguous, gather bridge and block-native plain,
+                traffic (tinyllama at full width and 8 of its 22 layers),
+                contiguous, gather bridge and block-native plain,
                 with the target's weights and other weights as the draft:
                 tokens and retire-time cache rows bitwise plain decode's,
                 the good draft's acceptance within the length budget 1.0,
@@ -104,10 +107,28 @@ Run from the root of a checkout. Phases, one JSON line each:
                 applications on the CPU through the plain versions
  18. gptpu_profile — each application's host wall time beside the device
                 time torch.profiler sees in it, and its top kernels
+ 19. moe      — deepseek-moe-16b at full width and depth (streamed W8A8
+                build: its seconds and peak device memory) on the serve
+                traffic: the kernel route twice (tokens equal), each
+                request alone on a one-slot engine, contiguous, bridge and
+                block-native plain bitwise in tokens and valid cache
+                entries, the kernel route held to plain at f32, launches
+                held to the forwards (qgemm 197 per forward), int8 KV,
+                speculative decode with the target as its own draft
+                (bitwise plain decode's, acceptance 1.0), Engine.embed, a
+                decode step's profile (the routed experts' device time
+                beside qgemm's), and the card against the CPU at 2 layers
+ 20. dense_configs — qwen3-14b (qk_norm), starcoder2-15b (LayerNorm, GeLU)
+                and granite-20b (MQA) in turn at full width and depth on
+                the kernel route: the serve traffic, request 0 alone,
+                launches held to each config's count, build seconds and
+                peak memory, tok/s, TTFT, a decode step's profile, and the
+                card against the CPU at 2 layers
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
-sampling, speculative, fleet (its in-process runs), gptpu and ops; ``ms`` and
+sampling, speculative, fleet (its in-process runs), gptpu, ops, moe and
+dense_configs; ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -143,7 +164,14 @@ def check(cond, what):
         raise SmokeFailure(what)
 
 
+_PHASE_T0 = [time.perf_counter()]
+
+
 def phase(label, **fields):
+    """One phase's JSON line, with the seconds since the previous one."""
+    now = time.perf_counter()
+    fields["seconds_since_last_phase"] = now - _PHASE_T0[0]
+    _PHASE_T0[0] = now
     print(json.dumps({"phase": label, **fields}), flush=True)
 
 
@@ -229,13 +257,27 @@ def qgemm_bound(M, K, N, out_bytes=2):
     return bound(moved, 2 * M * K * N, INT8_OPS_PER_S)
 
 
+# (K, N) of every W8A8 projection of the other served configs: deepseek-moe-16b
+# (attention 2048 x 2048, shared experts 2048 <-> 2816, lm_head 102400),
+# qwen3-14b (q and o 5120 x 5120, k and v 5120 x 1024, MLP 5120 <-> 17408,
+# lm_head 151936), starcoder2-15b (k and v 6144 x 512, MLP 6144 <-> 24576,
+# lm_head 49152) and granite-20b (k and v 6144 x 128); q and o of the last
+# two are 6144 x 6144
+MODEL_PAIRS = ((2048, 2816), (2816, 2048), (2048, 102400), (5120, 5120), (5120, 1024),
+               (5120, 17408), (17408, 5120), (5120, 151936), (6144, 6144), (6144, 512),
+               (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152))
+
+
 def check_qgemm(dev):
     """Bitwise against the plain version (and the int32 sums against an fp64
     product) in both regimes of the kernel's plan and both split paths: M in
     {1, 8, 16} (decode) and {17, 40, 128, 1024} at the five projection pairs,
     ragged and unaligned shapes (the kernel's staged path), decode shapes
     whose tiles fill the card unsplit, every operand
-    holding int8's -128 in a row of A and a column of B."""
+    holding int8's -128 in a row of A and a column of B; and M in {1, 8,
+    40, 1024} (one slot, the decode batch, the speculative verify window,
+    the serve batch's admission) at every projection of the other served
+    configs (MODEL_PAIRS)."""
     import torch
     from repro_torch.kernels.qgemm import _sm_count, plan, qgemm, qgemm_plain
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -244,6 +286,7 @@ def check_qgemm(dev):
     cases = [(M, K, N) for M in (1, 8, 16, 17, 40, 128, 1024) for K, N in pairs]
     cases += [(37, 130, 257), (7, 5632, 33), (13, 130, 257), (20, 32, 64), (3, 32, 4096),
               (16, 1024, 40960)]
+    cases += [(M, K, N) for M in (1, 8, 40, 1024) for K, N in MODEL_PAIRS]
     sms = _sm_count(torch.device(dev).index or 0)
     paths = set()
     max_err = 0.0
@@ -264,18 +307,20 @@ def check_qgemm(dev):
         check(torch.equal(out, ref), f"qgemm bf16 pdot epilogue {M}x{K}x{N}")
         out32 = qgemm(a, b, sb)
         max_err = max(max_err, float((out32 - qgemm_plain(a, b, sb)).abs().max()))
+        del a, b, exact, acc, out, ref, out32
     check(max_err == 0.0, f"qgemm f32 output differs from plain by {max_err}")
     check(len(paths) == 4, f"qgemm cases took only the plan paths {sorted(paths)}")
     torch.cuda.synchronize()
-    return {"cases": len(cases), "plan_paths": sorted("/".join(x) for x in paths),
-            "max_abs_err": max_err}
+    return {"cases": len(cases), "model_pairs": len(MODEL_PAIRS),
+            "plan_paths": sorted("/".join(x) for x in paths), "max_abs_err": max_err}
 
 
 def time_qgemm(dev):
     """Kernel, plain and library times at every main-path projection shape:
     decode (M = 8 slots), the speculative verify window (M = 40 = 8 slots x
-    5 positions) and one admission (M = 128 = one 128-token bucket),
-    with the weight operand cold (``cold_copies``). ``ms``, ``plain_ms`` and
+    5 positions) and one admission (M = 128 = one 128-token bucket), and at
+    decode the other served configs' projections (MODEL_PAIRS), with the
+    weight operand cold (``cold_copies``). ``ms``, ``plain_ms`` and
     ``library_ms`` are eager means (``time_ms``), which at these sizes count
     the host's time per call; ``graph_ms`` and ``library_graph_ms`` are
     device times (``graph_ms``). ``plan`` is the kernel's launch plan."""
@@ -285,27 +330,28 @@ def time_qgemm(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     sms = _sm_count(torch.device(dev).index or 0)
     rows = []
-    for M in (8, 40, 128):
-        for K, N in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)):
-            a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
-            bs = cold_copies(lambda: torch.randint(-127, 128, (K, N), generator=gen, device=dev,
-                                                   dtype=torch.int8), K * N)
-            sb = torch.rand(N, generator=gen, device=dev) * 1e-2
-            sa = torch.rand(M, generator=gen, device=dev) * 1e-1
-            cyc = itertools.cycle(bs)
-            ms = time_ms(lambda: qgemm(a, next(cyc), sb, sa, torch.bfloat16), 50)
-            g_ms = graph_ms(lambda: qgemm(a, next(cyc), sb, sa, torch.bfloat16), 50)
-            plain = time_ms(lambda: qgemm_plain(a, next(cyc), sb, sa, torch.bfloat16), 10)
-            lib = lib_graph = None
-            if M > 16 and K % 8 == 0 and N % 8 == 0:   # torch._int_mm's limits
-                lib = time_ms(lambda: torch._int_mm(a, next(cyc)), 50)
-                lib_graph = graph_ms(lambda: torch._int_mm(a, next(cyc)), 50)
-            bound_ms, by = qgemm_bound(M, K, N)
-            rows.append({"M": M, "K": K, "N": N, "ms": ms, "graph_ms": g_ms,
-                         "plain_ms": plain, "library_ms": lib, "library_graph_ms": lib_graph,
-                         "bound_ms": bound_ms, "bound_by": by,
-                         "plan": list(plan(M, K, N, sms))})
-            del bs
+    tiny = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000))
+    shapes = [(M, K, N) for M in (8, 40, 128) for K, N in tiny]
+    for M, K, N in shapes + [(8, K, N) for K, N in MODEL_PAIRS]:
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+        bs = cold_copies(lambda: torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                                               dtype=torch.int8), K * N)
+        sb = torch.rand(N, generator=gen, device=dev) * 1e-2
+        sa = torch.rand(M, generator=gen, device=dev) * 1e-1
+        cyc = itertools.cycle(bs)
+        ms = time_ms(lambda: qgemm(a, next(cyc), sb, sa, torch.bfloat16), 50)
+        g_ms = graph_ms(lambda: qgemm(a, next(cyc), sb, sa, torch.bfloat16), 50)
+        plain = time_ms(lambda: qgemm_plain(a, next(cyc), sb, sa, torch.bfloat16), 10)
+        lib = lib_graph = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:   # torch._int_mm's limits
+            lib = time_ms(lambda: torch._int_mm(a, next(cyc)), 50)
+            lib_graph = graph_ms(lambda: torch._int_mm(a, next(cyc)), 50)
+        bound_ms, by = qgemm_bound(M, K, N)
+        rows.append({"M": M, "K": K, "N": N, "ms": ms, "graph_ms": g_ms,
+                     "plain_ms": plain, "library_ms": lib, "library_graph_ms": lib_graph,
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "plan": list(plan(M, K, N, sms))})
+        del bs
     return rows
 
 
@@ -401,6 +447,21 @@ def plain_in_slices(q, k, v, tables, index, rows=128):
                       for i in range(0, q.shape[0], rows)])
 
 
+# the query / KV head layouts at hd 128 of the other served configs
+HD128 = {"hd128_deepseek": (16, 16), "hd128_qwen3": (40, 8), "hd128_starcoder2": (48, 4),
+         "hd128_granite": (48, 1)}
+
+
+def split_edges(H, KV, MB=10, bs=16):
+    """Eight horizons for a serving-shape table (MB entries of bs): 0, on and
+    beside the first two split boundaries of the layout's own plan, the
+    table's last cell, past it (an idle slot) and one inside."""
+    from repro_torch.kernels.paged_attention import plan
+    per = plan(MB, bs, H, KV).per * bs                       # positions per split
+    S = MB * bs
+    return [0, per - 1, per, 2 * per - 1, 2 * per, S - 1, S - 1 + 37, 100]
+
+
 def check_paged(dev):
     """Against the plain version at rtol = atol = 1e-5 (the online softmax
     and the plain full-row softmax differ only by f32 rounding), in every
@@ -412,27 +473,37 @@ def check_paged(dev):
     the table's last cell and past S (an idle slot); the long-context shape
     (MB = 128) with every horizon at the last cell, and with mixed horizons
     whose slots leave whole splits past the horizon; MHA with f32 pools in
-    one split. Prefill cases, the main path's prefill shapes: the serve
-    traffic's batch (8 rows x 128 queries, horizons 0..127, tables of
-    decode's 10 blocks) and the chunked phase's last 256-query piece of two
-    2048-position rows (MB = 128, horizons 1792..2047)."""
+    one split; the other served configs' head layouts at hd 128 (HD128:
+    16/16 MHA, 40/8, 48/4, 48/1 MQA) at the serving shape, and at it with
+    horizons on and beside each layout's own split boundaries. Prefill
+    cases, the main path's prefill shapes: the serve traffic's batch (8
+    rows x 128 queries, horizons 0..127, tables of decode's 10 blocks) at
+    tinyllama's layout and at each HD128 layout, and the chunked phase's
+    last 256-query piece of two 2048-position rows (MB = 128, horizons
+    1792..2047)."""
     import torch
     from repro_torch.kernels.paged_attention import paged_decode_attention, plan
-    per = plan(10, 16, 32, 4).per * 16                       # positions per split
     prefill = {
         "prefill_serving": prefill_rows_case(dev, 8, 128, 160),
         "prefill_chunked": prefill_rows_case(dev, 2, CHUNK_W, CHUNK_SEQ,
                                              start=CHUNK_SEQ - CHUNK_W, seed=10),
+        **{f"prefill_{name}": prefill_rows_case(dev, 8, 128, 160, seed=50 + i, H=H, KV=KV,
+                                                hd=128)
+           for i, (name, (H, KV)) in enumerate(HD128.items())},
     }
     cases = {
         "serving": paged_case(dev),
-        "serving_edges": paged_full_case(
-            dev, [0, per - 1, per, 2 * per - 1, 2 * per, 159, 159 + 37, 100], 10),
+        "serving_edges": paged_full_case(dev, split_edges(32, 4), 10),
         "long_full": paged_full_case(dev, [2047] * 8, 128, seed=6),
         "long_edges": paged_full_case(
             dev, [0, 127, 128, 1023, 1024, 2047, 2047 + 500, 5], 128, seed=7),
         "mha_f32": [t.float() if t.dtype == torch.bfloat16 else t for t in
                     paged_case(dev, B=3, H=4, KV=4, hd=16, bs=8, MB=3, seed=4)],
+        **{name: paged_case(dev, H=H, KV=KV, hd=128, seed=20 + i)
+           for i, (name, (H, KV)) in enumerate(HD128.items())},
+        **{f"{name}_edges": paged_full_case(dev, split_edges(H, KV), 10, H=H, KV=KV, hd=128,
+                                            seed=40 + i)
+           for i, (name, (H, KV)) in enumerate(HD128.items())},
         **prefill,
     }
     out_rows, max_err = {}, 0.0
@@ -464,9 +535,11 @@ def check_paged(dev):
 
 
 def time_paged(dev):
-    """Kernel, plain and library times at the serving shape and at the
+    """Kernel, plain and library times at the serving shape, at the
     long-context shape (8 slots, MB = 128: tinyllama's 2048-token context,
-    every lease full, every horizon at the last cell), pools cold. ``ms``,
+    every lease full, every horizon at the last cell), and at the serving
+    shape with the other served configs' hd-128 head layouts (HD128), pools
+    cold. ``ms``,
     ``plain_ms`` and ``library_ms`` are eager means (``time_ms``);
     ``graph_ms`` and ``library_graph_ms`` device times (``graph_ms``)."""
     import itertools
@@ -475,8 +548,11 @@ def time_paged(dev):
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain, plan)
     rows = []
-    for name, case in (("serving", paged_case(dev)),
-                       ("long", paged_full_case(dev, [2047] * 8, 128, seed=8))):
+    cases = [("serving", paged_case(dev)),
+             ("long", paged_full_case(dev, [2047] * 8, 128, seed=8))]
+    cases += [(name, paged_case(dev, H=H, KV=KV, hd=128, seed=30 + i))
+              for i, (name, (H, KV)) in enumerate(HD128.items())]
+    for name, case in cases:
         q, k, v, tables, index = case
         # cold pools: each layer of a decode step reads its own pool once
         pools = itertools.cycle(cold_copies(lambda: (k.clone(), v.clone()),
@@ -505,7 +581,8 @@ def time_paged(dev):
                                                                     attn_mask=mask), 100)
         del views
         bound_ms, by = paged_bound(q, k, tables, index)
-        rows.append({"shape": name, "B": B, "MB": tables.shape[1],
+        rows.append({"shape": name, "B": B, "MB": tables.shape[1], "H": H,
+                     "KV": k.shape[2], "hd": hd,
                      "plan": list(plan(tables.shape[1], k.shape[1], H, k.shape[2])),
                      "ms": ms, "graph_ms": g_ms, "plain_ms": plain, "library_ms": lib,
                      "library_graph_ms": lib_graph, "bound_ms": bound_ms, "bound_by": by})
@@ -874,16 +951,14 @@ def check_serve():
     check(all(r.done and len(r.tokens) == gen for r in reqs), "a request did not finish")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.tokens), "token out of vocab")
     steps = stats["decode_steps"]
-    # per forward: q, k, v, o, wi, wg, wo per layer, plus the lm_head; and on
-    # this route every forward, decode step or prefill batch, attends
+    # on this route every forward, decode step or prefill batch, attends
     # through the paged-attention kernel once per layer
-    per_forward = 7 * cfg.n_layers + 1
     forwards = steps + stats["prefill_batches"]
     check(launches["paged_decode_attention"] == forwards * cfg.n_layers,
           f"paged attention launched {launches['paged_decode_attention']} times, "
           f"expected {forwards} forwards x {cfg.n_layers} layers")
-    check(launches["qgemm"] == per_forward * forwards,
-          f"qgemm launched {launches['qgemm']} times, expected {per_forward} x "
+    check(launches["qgemm"] == per_forward(cfg) * forwards,
+          f"qgemm launched {launches['qgemm']} times, expected {per_forward(cfg)} x "
           f"{forwards} forwards")
     reqs2, _, _, _ = serve_once()
     check([r.tokens for r in reqs2] == [r.tokens for r in reqs],
@@ -899,13 +974,14 @@ def check_serve():
     }
 
 
-def check_batch_invariance(reqs):
+def check_batch_invariance(reqs, setup=None):
     """Each request of the ``serve`` traffic served alone, by an engine of
     one slot built as ``serve.run`` builds its own (same weights, same
     prompt), must get the tokens it got in the batched run: there every
-    decode step ran the 8 slots (qgemm at M = 8), here 1 (M = 1)."""
+    decode step ran the 8 slots (qgemm at M = 8), here 1 (M = 1).
+    ``setup``: another arch's (cfg, params, prompts, args)."""
     from repro_torch.serving.engine import Engine, EngineConfig
-    cfg, params, _, args = serve_setup()
+    cfg, params, _, args = setup or serve_setup()
     engine = Engine(cfg, params, EngineConfig(
         max_slots=1, max_queue=args.max_queue, max_seq_len=args.prompt_len + args.gen,
         cache_backend=args.cache_backend, block_size=args.block_size,
@@ -953,25 +1029,27 @@ def _prefill_then_decode(params, cfg, tokens, n_steps, feed=None, use_kernel=Tru
                                        A.DecodeRows(length, 16 if use_kernel else None))
     store.write_slots(list(range(B)), kv, [P] * B)
     toks = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+    active = torch.ones(B, dtype=torch.bool, device=dev)
     steps, fed = [], []
     for i in range(n_steps):
         if feed is not None:
             toks = feed[i].to(dev)
         fed.append(toks.cpu())
         out, cache = SV.decode_paged(params, cfg, store.decode_cache(), toks,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel, active=active)
         store.swap(cache)
         steps.append(out[:, -1])
         toks = out[:, -1].float().argmax(-1).to(torch.int32)[:, None]
     return logits, steps, fed
 
 
-def check_reference():
+def check_reference(arch="tinyllama-1.1b", n_layers=None):
     """The full-width model on the card (kernels) against the same model on
     the CPU (plain versions), same weights and inputs, in the f32 compute
     dtype: a 16-token prefill of 2 prompts, as the kernel route's engine
     runs it (every query through the paged-attention kernel, its plain
-    version on the CPU), and 3 block-native decode steps.
+    version on the CPU), and 3 block-native decode steps. ``arch`` at
+    ``n_layers`` (None: its full depth).
 
     Tolerance: RMS difference <= 1.5% and max <= 6% of the CPU logits'
     absolute max, and the same greedy token wherever the CPU's top-2 margin
@@ -984,13 +1062,13 @@ def check_reference():
     size."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import tensorizer as tz
     from repro_torch.launch.serve import quant_predicate
-    from repro_torch.models import attention as A, init_model, serve as SV
-    cfg = get_config("tinyllama-1.1b").replace(quantize="serve", dtype="float32")
+    from repro_torch.models import attention as A, serve as SV
+    from repro_torch.models.model import init_model_quantized
+    cfg = get_config(arch).replace(quantize="serve", dtype="float32")
+    cfg = cfg.replace(n_layers=n_layers or cfg.n_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = tz.quantize_params(init_model(cfg, gen, device="cuda"),
-                                predicate=quant_predicate)
+    params = init_model_quantized(cfg, gen, quant_predicate, device="cuda")
     tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(5))
     cpu_params = _to_cpu(params)
     c_pre, c_steps, fed = _prefill_then_decode(cpu_params, cfg, tokens, 3)
@@ -1018,7 +1096,84 @@ def check_reference():
               f"card and CPU pick different clear greedy tokens ({name})")
         out[name] = {"max_abs_diff": float(d.max()), "rms_diff": rms, "abs_max": scale,
                      "clear_tokens_compared": int(clear.sum())}
+    out["arch"], out["n_layers"] = arch, cfg.n_layers
     return out
+
+
+def decode_stepper(cfg, params, B=8, P=128, seed=6):
+    """A served decode step of ``cfg`` at full width: 8 slots of 128-token
+    prompts in a paged store, admitted by the kernel route's prefill, each
+    step block-native through the kernels with every slot active. Returns
+    ``step()``, which runs one step and feeds its greedy tokens back."""
+    import torch
+    from repro_torch.models import attention as A, serve as SV
+    from repro_torch.serving.store import PagedKVStore
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(seed))
+    store = PagedKVStore(cfg, B, P + 32, block_size=16, native=True, device="cuda")
+    for b in range(B):
+        store.lease(b, P, 32)
+    _, kv = SV.prefill_with_cache(params, cfg, tokens.cuda(), A.DecodeRows(P + 32, 16))
+    store.write_slots(list(range(B)), kv, [P] * B)
+    state = {"toks": torch.zeros((B, 1), dtype=torch.int32, device="cuda")}
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+
+    def step():
+        logits, cache = SV.decode_paged(params, cfg, store.decode_cache(), state["toks"],
+                                        active=active)
+        store.swap(cache)
+        state["toks"] = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+    return step
+
+
+def measure_steps(step, n, ranges=()):
+    """Host wall ms per ``step()`` (synchronised) over ``n`` steps, then the
+    same ``n`` steps under torch.profiler; ``ranges``: (module, function
+    name) pairs wrapped in a profiler range of that name while profiled.
+    The profile records the device's activity, and the host's ops only
+    where ``ranges`` are named (a range's device-side span needs them):
+    a served step issues thousands of host ops, and parsing their events
+    took longer than the steps themselves. Returns (wall ms, the
+    profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    saved = [(m, f, getattr(m, f)) for m, f in ranges]
+
+    def ranged(fn, label):
+        def call(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return call
+    try:
+        for m, f, fn in saved:
+            setattr(m, f, ranged(fn, f))
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+        with profile(activities=acts) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for m, f, fn in saved:
+            setattr(m, f, fn)
+    return wall_ms, prof
+
+
+def range_device_ms(prof, n, label):
+    """Device ms per run of the kernels launched inside the profiler range
+    ``label`` (``measure_steps``' ``ranges``): the host-side range's device
+    time, not the device-side span, which also counts the gaps."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.key_averages() if e.key == label
+          and e.device_type == DeviceType.CPU]
+    if not ev:
+        return None
+    e = ev[0]
+    return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3 / n
 
 
 def profile_decode():
@@ -1027,59 +1182,25 @@ def profile_decode():
     per step (synchronised) over 8 steps, then the same 8 steps under
     torch.profiler for the device busy time and the kernels that fill it.
 
-    Then the RMSNorm two ways, in turns (fused, tree, tree, fused), each 8
-    steps timed and 8 profiled: the model's ``F.rms_norm`` (one launch) and
-    :func:`tree_norm`, the same norm with its row sums by a fixed tree of
-    halving adds."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.core import tensorizer as tz
-    from repro_torch.launch.serve import quant_predicate
-    from repro_torch.models import attention as A, init_model, layers as L, serve as SV
-    from repro_torch.serving.store import PagedKVStore
-    cfg = get_config("tinyllama-1.1b").replace(quantize="serve")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = tz.quantize_params(init_model(cfg, gen, device="cuda"),
-                                predicate=quant_predicate)
-    B, P, n = 8, 128, 8
-    tokens = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(6))
-    store = PagedKVStore(cfg, B, P + 32, block_size=16, native=True, device="cuda")
-    for b in range(B):
-        store.lease(b, P, 32)
-    _, kv = SV.prefill_with_cache(params, cfg, tokens.cuda(), A.DecodeRows(P + 32, 16))
-    store.write_slots(list(range(B)), kv, [P] * B)
-    toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
-
-    def step():
-        nonlocal toks
-        logits, cache = SV.decode_paged(params, cfg, store.decode_cache(), toks)
-        store.swap(cache)
-        toks = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
-
-    def measure():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize()
-        return wall_ms, prof
-
+    Then the RMSNorm two ways, in turns (fused, tree, tree, fused), each
+    8 steps timed and 8 profiled: the model's
+    ``F.rms_norm`` (one launch) and :func:`tree_norm`, the same norm with
+    its row sums by a fixed tree of halving adds."""
+    from repro_torch.models import layers as L
+    cfg, params, _, _ = serve_setup()
+    n = 8
+    step = decode_stepper(cfg, params)
     for _ in range(2):
         step()
-    wall_ms, prof = measure()
+    wall_ms, prof = measure_steps(step, n)
     busy_ms, top = device_time(prof, n, 8)
+    check(busy_ms > 0, "decode_profile: the profile holds no device time")
     fused, norm_ab = L.apply_norm, []
     try:
         for name in ("fused", "tree", "tree", "fused"):
             L.apply_norm = fused if name == "fused" else tree_norm
             step()
-            w, pr = measure()
+            w, pr = measure_steps(step, n)
             norm_ab.append({"norm": name, "decode_step_wall_ms": w,
                             "device_busy_ms_per_step": device_time(pr, n, 0)[0]})
     finally:
@@ -1106,14 +1227,15 @@ def tree_norm(p, x, cfg, eps=1e-6):
     return (xf * torch.rsqrt(t / xf.shape[-1] + eps) * p["scale"]).to(x.dtype)
 
 
-def device_time(prof, n, k, name=""):
+def device_time(prof, n, k, name="", ranges=()):
     """Device busy ms per run (of ``n`` profiled runs) and the ``k`` kernels
     that fill most of it, from device-side events only (the kernels and
     copies themselves: the operator events above them carry the same time
-    again); with ``name``, of the kernels whose name holds it only."""
+    again, and so does the device-side span of a profiler range named in
+    ``ranges``); with ``name``, of the kernels whose name holds it only."""
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key]
+              if e.device_type == DeviceType.CUDA and name in e.key and e.key not in ranges]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
@@ -1136,21 +1258,23 @@ ROUTES = {
 CLEAR_MARGIN = 0.3     # check_reference's clear top-2 margin
 
 
-def serve_setup(**replace):
+def serve_setup(arch=None, **replace):
     """The serve phase's model, weights and prompts, as serve.run builds
-    them from SERVE_ARGS (``replace``: config fields to change)."""
+    them from SERVE_ARGS (``arch``: another ``--arch``; ``replace``: config
+    fields to change): the streamed W8A8 build."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import tensorizer as tz
     from repro_torch.launch import serve
-    from repro_torch.models import init_model
-    args = serve.build_parser().parse_args(SERVE_ARGS)
+    from repro_torch.models.model import init_model_quantized
+    argv = list(SERVE_ARGS)
+    if arch is not None:
+        argv[argv.index("--arch") + 1] = arch
+    args = serve.build_parser().parse_args(argv)
     cfg = get_config(args.arch)
     cfg = (cfg.smoke() if args.smoke else cfg).replace(quantize=args.quantize, **replace)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = tz.quantize_params(init_model(cfg, gen, device=args.device),
-                                predicate=serve.quant_predicate)
+    params = init_model_quantized(cfg, gen, serve.quant_predicate, device=args.device)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (args.requests, args.prompt_len), dtype=np.int32)
     return cfg, params, prompts, args
@@ -1216,9 +1340,14 @@ def drive(cfg, params, prompts, args, submit_kw=None, engine_cls=None, draft_par
 
 
 def per_forward(cfg):
-    """qgemm launches per forward of one token position block: q, k, v, o,
-    wi, wg, wo in every layer, plus the lm_head."""
-    return 7 * cfg.n_layers + 1
+    """qgemm launches per forward of one token position block: q, k, v, o
+    in every layer, the MLP's projections (wi, wg, wo with SwiGLU; wi, wo
+    with GeLU) or a MoE layer's shared experts' (its routed experts
+    contract in the compute dtype, outside qgemm), plus the lm_head."""
+    mlp = 3 if cfg.act == "swiglu" else 2
+    if cfg.family == "moe" and not cfg.n_shared_experts:
+        mlp = 0
+    return (4 + mlp) * cfg.n_layers + 1
 
 
 def check_route_launches(name, cfg, stats, launches, paged):
@@ -1660,68 +1789,81 @@ def check_speculative():
     with a good draft (the target's weights) and a bad one (generator seed
     --seed + 1): tokens and every request's retire-time cache rows bitwise
     those of plain decode on the same route, the good draft's acceptance
-    within the length budget exactly 1.0, qgemm 155 launches per forward
-    (k + 1 draft steps and one verify per round), and every block back in
-    the free list after draining."""
-    import numpy as np
+    within the length budget exactly 1.0, qgemm launches held to the
+    forwards (k + 1 draft steps and one verify per round), and every block
+    back in the free list after draining."""
     import torch
-    from repro_torch.core import tensorizer as tz
     from repro_torch.launch import serve
-    from repro_torch.models import init_model
+    from repro_torch.models.model import init_model_quantized
     cfg, params, prompts, args = serve_setup()
     gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
-    bad = tz.quantize_params(init_model(cfg, gen, device=args.device),
-                             predicate=serve.quant_predicate)
-    snap = snapshot_engine_cls()
+    bad = init_model_quantized(cfg, gen, serve.quant_predicate, device=args.device)
     out, launches_all = {}, []
     for route in ("contiguous", "bridge", "native_plain"):
-        plain = drive(cfg, params, prompts, args, engine_cls=snap, **ROUTES[route])
-        out[route] = {"plain": {"sustained_tok_s": plain[1]["sustained_tok_s"],
-                                "decode_steps": plain[1]["decode_steps"],
-                                "wall_s": plain[3]}}
-        for draft, dparams in (("good", params), ("bad", bad)):
-            reqs, stats, launches, wall, _, engine, round_s = drive(
-                cfg, params, prompts, args, engine_cls=snap, draft_params=dparams,
-                speculative=True, spec_k=SPEC_K, draft=cfg, **ROUTES[route])
-            name = f"{route}/{draft}"
-            check([r.tokens for r in reqs] == [r.tokens for r in plain[0]],
-                  f"{name}: speculative tokens differ from plain decode's")
-            for r, p in zip(reqs, plain[0]):
-                for leaf, t in engine.rows[r.id].items():
-                    check(torch.equal(t, plain[5].rows[p.id][leaf]),
-                          f"{name}: request {r.id}'s retire-time {leaf} rows differ from plain's")
-            forwards = stats["decode_steps"] + stats["draft_steps"] + 2 * stats["prefill_batches"]
-            check(launches["qgemm"] == per_forward(cfg) * forwards,
-                  f"{name}: qgemm launched {launches['qgemm']} times, expected "
-                  f"{per_forward(cfg)} x {forwards} forwards")
-            check(launches["paged_decode_attention"] == 0, f"{name}: paged attention launched")
-            within = stats["accepted_tokens"] / max(engine.spec_budget, 1)
-            if draft == "good":
-                check(within == 1.0, f"{name}: acceptance within budget {within}, not 1.0")
-            else:
-                check(stats["accepted_tokens"] < stats["proposed_tokens"],
-                      f"{name}: the bad draft was accepted everywhere")
-            census = None
-            if ROUTES[route]["cache_backend"] == "paged":
-                census = engine.store.debug_block_census()
-                check(census["referenced"] == [] and census["free"]
-                      == list(range(1, engine.store.n_blocks)), f"{name}: census {census}")
-                census = {k: len(v) for k, v in census.items()}
-            launches_all.append(launches)
-            out[route][draft] = {
-                "spec_rounds": stats["spec_rounds"], "draft_steps": stats["draft_steps"],
-                "decode_steps": stats["decode_steps"],
-                "proposed_tokens": stats["proposed_tokens"],
-                "accepted_tokens": stats["accepted_tokens"],
-                "acceptance_rate": stats["acceptance_rate"],
-                "acceptance_within_budget": within, "accept_hist": stats["accept_hist"],
-                "sustained_tok_s": stats["sustained_tok_s"], "wall_s": wall,
-                "round_ms_median": 1e3 * float(np.median(round_s)),
-                "qgemm_per_round": (launches["qgemm"] - 2 * per_forward(cfg)
-                                    * stats["prefill_batches"]) / stats["spec_rounds"],
-                "census_after_drain": census, "launches": launches}
+        out[route], launches = speculative_route(cfg, params, prompts, args, route,
+                                                 {"good": params, "bad": bad})
+        launches_all += launches
     return {k: sum(l[k] for l in launches_all) for k in launches_all[0]}, {
         "spec_k": SPEC_K, "tokens_and_rows_bitwise_plain": True, **out}
+
+
+def speculative_route(cfg, params, prompts, args, route, drafts):
+    """Plain decode and speculative decode with each draft of ``drafts``
+    (name -> weights; "good" is the target's own, whose acceptance within
+    the length budget must be exactly 1.0; any other must be refused
+    somewhere) on ``route``: tokens and every retire-time cache row
+    bitwise plain decode's, launches held to the forwards, the census after
+    draining. Returns the route's summary and the speculative runs'
+    launches."""
+    import numpy as np
+    import torch
+    snap = snapshot_engine_cls()
+    plain = drive(cfg, params, prompts, args, engine_cls=snap, **ROUTES[route])
+    out = {"plain": {"sustained_tok_s": plain[1]["sustained_tok_s"],
+                     "decode_steps": plain[1]["decode_steps"], "wall_s": plain[3]}}
+    launches_all = []
+    for draft, dparams in drafts.items():
+        reqs, stats, launches, wall, _, engine, round_s = drive(
+            cfg, params, prompts, args, engine_cls=snap, draft_params=dparams,
+            speculative=True, spec_k=SPEC_K, draft=cfg, **ROUTES[route])
+        name = f"{cfg.name} {route}/{draft}"
+        check([r.tokens for r in reqs] == [r.tokens for r in plain[0]],
+              f"{name}: speculative tokens differ from plain decode's")
+        for r, p in zip(reqs, plain[0]):
+            for leaf, t in engine.rows[r.id].items():
+                check(torch.equal(t, plain[5].rows[p.id][leaf]),
+                      f"{name}: request {r.id}'s retire-time {leaf} rows differ from plain's")
+        forwards = stats["decode_steps"] + stats["draft_steps"] + 2 * stats["prefill_batches"]
+        check(launches["qgemm"] == per_forward(cfg) * forwards,
+              f"{name}: qgemm launched {launches['qgemm']} times, expected "
+              f"{per_forward(cfg)} x {forwards} forwards")
+        check(launches["paged_decode_attention"] == 0, f"{name}: paged attention launched")
+        within = stats["accepted_tokens"] / max(engine.spec_budget, 1)
+        if draft == "good":
+            check(within == 1.0, f"{name}: acceptance within budget {within}, not 1.0")
+        else:
+            check(stats["accepted_tokens"] < stats["proposed_tokens"],
+                  f"{name}: the bad draft was accepted everywhere")
+        census = None
+        if ROUTES[route]["cache_backend"] == "paged":
+            census = engine.store.debug_block_census()
+            check(census["referenced"] == [] and census["free"]
+                  == list(range(1, engine.store.n_blocks)), f"{name}: census {census}")
+            census = {k: len(v) for k, v in census.items()}
+        launches_all.append(launches)
+        out[draft] = {
+            "spec_rounds": stats["spec_rounds"], "draft_steps": stats["draft_steps"],
+            "decode_steps": stats["decode_steps"],
+            "proposed_tokens": stats["proposed_tokens"],
+            "accepted_tokens": stats["accepted_tokens"],
+            "acceptance_rate": stats["acceptance_rate"],
+            "acceptance_within_budget": within, "accept_hist": stats["accept_hist"],
+            "sustained_tok_s": stats["sustained_tok_s"], "wall_s": wall,
+            "round_ms_median": 1e3 * float(np.median(round_s)),
+            "qgemm_per_round": (launches["qgemm"] - 2 * per_forward(cfg)
+                                * stats["prefill_batches"]) / stats["spec_rounds"],
+            "census_after_drain": census, "launches": launches}
+    return out, launches_all
 
 
 # ------------------------------------------------------------ the fleet
@@ -2037,6 +2179,231 @@ def check_fleet(serve_reqs, serve_stats, contiguous_tokens):
     out["api"] = {"completion_tokens": len(body["tokens"]), "sse_events": len(tok_events),
                   "classify_probs_sum": sum(cls["probs"])}
     return launches, out
+
+
+# ------------------------------------------- the other families and configs
+
+MOE_ARCH = "deepseek-moe-16b"
+DENSE_ARCHS = ("qwen3-14b", "starcoder2-15b", "granite-20b")
+REFERENCE_LAYERS = 2   # depth of the card-vs-CPU reference of the other configs
+
+
+def build_arch(arch, **replace):
+    """``serve_setup(arch)`` timed, with the peak of allocated device memory
+    over the streamed build (above what was allocated before it) and the
+    weights' bytes."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = serve_setup(arch, **replace)
+    torch.cuda.synchronize()
+    build = {"seconds": time.perf_counter() - t0,
+             "device_peak_bytes": torch.cuda.max_memory_allocated() - before,
+             "weight_bytes": torch.cuda.memory_allocated() - before}
+    return setup, build
+
+
+def free_device():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lap_clock():
+    """``lap(name)`` records the seconds since the previous lap under
+    ``name`` in the returned dict."""
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+    return laps, lap
+
+
+def served_summary(run):
+    """tok/s, TTFT and step medians of a ``drive`` run."""
+    import numpy as np
+    reqs, stats, launches, wall, _, _, decode_s = run
+    return {"decode_steps": stats["decode_steps"], "prefill_batches": stats["prefill_batches"],
+            "sustained_tok_s": stats["sustained_tok_s"], "wall_s": wall,
+            "mean_ttft_ms": 1e3 * float(np.mean([r.metrics.ttft_s for r in reqs])),
+            "decode_step_ms_median": 1e3 * float(np.median(decode_s)),
+            "device_peak_bytes": stats["device_peak_bytes"], "launches": launches}
+
+
+def profile_arch(cfg, params, n=2):
+    """A served decode step of ``cfg`` (``decode_stepper``): host wall ms,
+    device busy ms, its top kernels, qgemm's and paged attention's device
+    ms, and the device ms under the MoE block's routed-expert products
+    (``moe.expert_outputs``: dequantizing the experts and the batched
+    products) and under its router and dispatch."""
+    from repro_torch.models import moe as MOE
+    step = decode_stepper(cfg, params)
+    for _ in range(2):
+        step()
+    ranges = ((MOE, "expert_outputs"), (MOE, "dispatch"), (MOE, "router_scores"))
+    ranges = ranges if cfg.family == "moe" else ()
+    wall_ms, prof = measure_steps(step, n, ranges)
+    busy_ms, top = device_time(prof, n, 8, ranges=[f for _, f in ranges])
+    check(busy_ms > 0, f"{cfg.name}: the decode profile holds no device time")
+    out = {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+           "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+           "qgemm_ms_per_step": device_time(prof, n, 0, "qgemm")[0],
+           "paged_attention_ms_per_step": device_time(prof, n, 0, "paged_attention")[0],
+           "top_kernels_ms_per_step": top}
+    if cfg.family == "moe":
+        out.update({f"{f}_ms_per_step": range_device_ms(prof, n, f) for _, f in ranges})
+    return out
+
+
+def dequant_times(cfg, params):
+    """Device ms to dequantize one layer's routed ``wi`` (E, D, F) to bf16,
+    two ways: the model's one pass (``moe._dequant``: int8 times the f32
+    scale, stored as bf16) and an f32 copy scaled then cast; with the
+    bound of the one pass (int8 read, bf16 written)."""
+    import torch
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import layer_params
+    w = layer_params(params["layers"], 0)["moe"]["wi"]
+    one = time_ms(lambda: MOE._dequant(w, torch.bfloat16), 10)
+    two = time_ms(lambda: (w.q.to(torch.float32) * w.scale).to(torch.bfloat16), 10)
+    check(torch.equal(MOE._dequant(w, torch.bfloat16),
+                      (w.q.to(torch.float32) * w.scale).to(torch.bfloat16)),
+          "the one-pass dequant differs from the f32 one")
+    return {"shape": list(w.q.shape), "one_pass_ms": one, "f32_then_cast_ms": two,
+            "bound_ms": 1e3 * 3 * w.q.numel() / HBM_BYTES_PER_S}
+
+
+def check_moe():
+    """deepseek-moe-16b at full width and depth behind the Engine, built by
+    the streamed build, on the serve traffic (SERVE_ARGS with its --arch):
+    the kernel route twice (tokens equal); each request alone on a one-slot
+    engine (the batched tokens); contiguous, gather bridge and block-native
+    plain bitwise equal in tokens and valid cache entries, and the kernel
+    route held to block-native plain by check_reference's rule at f32
+    (``kernel_vs_plain_route``: the kernel is the plain contraction's
+    function to 1e-5, not its bits); launches held to the forwards on
+    every route (qgemm 197 per forward: 4 attention and 3 shared-expert
+    projections a layer and the lm_head); the int8 KV cache on the kernel
+    route; greedy speculative decode with the target as its own draft on
+    the contiguous store (tokens and retire-time rows bitwise plain
+    decode's, acceptance within the budget 1.0); ``Engine.embed``; a decode
+    step's profile; then the card against the CPU at full width and
+    REFERENCE_LAYERS layers (check_reference). Returns the summary and the
+    launches of every served run."""
+    import numpy as np
+    from repro_torch.serving.engine import Engine, EngineConfig
+    laps, lap = lap_clock()
+    (cfg, params, prompts, args), build = build_arch(MOE_ARCH)
+    check(per_forward(cfg) == 197, f"{MOE_ARCH}: {per_forward(cfg)} qgemm launches a forward")
+    runs, launches = {}, []
+    lap("build")
+    first = drive(cfg, params, prompts, args, **ROUTES["native_kernel"])
+    again = drive(cfg, params, prompts, args, **ROUTES["native_kernel"])
+    for run in (first, again):
+        check(all(r.done and len(r.tokens) == args.gen for r in run[0]),
+              f"{MOE_ARCH}: a request did not finish")
+        check(all(0 <= t < cfg.vocab for r in run[0] for t in r.tokens),
+              f"{MOE_ARCH}: token out of vocab")
+        check_route_launches(f"{MOE_ARCH} native_kernel", cfg, run[1], run[2], True)
+        launches.append(run[2])
+    check([r.tokens for r in first[0]] == [r.tokens for r in again[0]],
+          f"{MOE_ARCH}: a second run of the kernel route gave other tokens")
+    runs["native_kernel"] = served_summary(first)
+    lap("kernel_route_twice")
+    alone = check_batch_invariance(first[0], (cfg, params, prompts, args))
+    lap("batch_invariance")
+    routes, _ = serve_routes(cfg, params, prompts, args,
+                             ["contiguous", "bridge", "native_plain"])
+    launches += [routes[r]["launches"] for r in routes]
+    lap("routes")
+    kernel_vs_plain = kernel_vs_plain_route(cfg, params, prompts, args)
+    lap("kernel_vs_plain")
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    int8, _ = serve_routes(cfg8, params, prompts, args, ["native_kernel"])
+    launches.append(int8["native_kernel"]["launches"])
+    lap("int8_kv")
+    spec, spec_launches = speculative_route(cfg, params, prompts, args, "contiguous",
+                                            {"good": params})
+    launches += spec_launches
+    lap("speculative")
+    engine = Engine(cfg, params, EngineConfig(max_slots=1, max_seq_len=args.prompt_len
+                                              + args.gen), device=args.device)
+    t0 = time.perf_counter()
+    emb = engine.embed(prompts[0])
+    embed_s = time.perf_counter() - t0
+    engine.close()
+    check(emb["embedding"].shape == (cfg.d_model,) and emb["logits"].shape == (cfg.vocab,)
+          and np.isfinite(emb["embedding"]).all() and np.isfinite(emb["logits"]).all(),
+          f"{MOE_ARCH}: Engine.embed gave a bad row")
+    profile = profile_arch(cfg, params)
+    profile["dequant_one_expert_matrix_set"] = dequant_times(cfg, params)
+    lap("embed_and_profile")
+    del params
+    free_device()
+    reference = check_reference(MOE_ARCH, REFERENCE_LAYERS)
+    free_device()
+    lap("reference")
+    total = {k: sum(l[k] for l in launches) for k in launches[0]}
+    return total, {"seconds": laps,
+        "arch": MOE_ARCH, "n_layers": cfg.n_layers, "build": build, "serve": runs,
+        "batch_invariance": alone, "routes": routes, "kernel_vs_plain": kernel_vs_plain,
+        "int8_kv": int8, "speculative": spec,
+        "embed": {"seconds": embed_s, "argmax": int(np.argmax(emb["logits"]))},
+        "decode_profile": profile, "reference": reference,
+        "qgemm_per_forward": per_forward(cfg), "launches": total}
+
+
+def check_dense_configs():
+    """qwen3-14b (qk_norm), starcoder2-15b (LayerNorm, GeLU) and granite-20b
+    (MQA), each at full width and depth behind the Engine on the kernel
+    route, built by the streamed build, one at a time (each freed before
+    the next): the serve traffic once, request 0 alone on a one-slot engine
+    (the same tokens), launches held to the config's count, the build's
+    time and peak device memory, tok/s, TTFT and a decode step's profile;
+    then the card against the CPU at REFERENCE_LAYERS layers."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    out, launches = {}, []
+    for arch in DENSE_ARCHS:
+        laps, lap = lap_clock()
+        (cfg, params, prompts, args), build = build_arch(arch)
+        lap("build")
+        run = drive(cfg, params, prompts, args, **ROUTES["native_kernel"])
+        reqs = run[0]
+        check(all(r.done and len(r.tokens) == args.gen for r in reqs),
+              f"{arch}: a request did not finish")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.tokens),
+              f"{arch}: token out of vocab")
+        check_route_launches(f"{arch} native_kernel", cfg, run[1], run[2], True)
+        launches.append(run[2])
+        served = served_summary(run)
+        engine = Engine(cfg, params, EngineConfig(
+            max_slots=1, max_seq_len=args.prompt_len + args.gen,
+            **ROUTES["native_kernel"], block_size=args.block_size), device=args.device)
+        alone = engine.submit(reqs[0].prompt, args.gen, strict=True)
+        engine.run_until_complete()
+        engine.close()
+        check(alone.tokens == reqs[0].tokens,
+              f"{arch}: request 0 alone gave other tokens than in the batch")
+        lap("serve_and_alone")
+        profile = profile_arch(cfg, params)
+        lap("profile")
+        del params, run, engine
+        free_device()
+        out[arch] = {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+                     "kv_heads": cfg.n_kv, "hd": cfg.hd, "build": build, "serve": served,
+                     "qgemm_per_forward": per_forward(cfg), "alone_same_tokens": True,
+                     "decode_profile": profile,
+                     "reference": check_reference(arch, REFERENCE_LAYERS)}
+        free_device()
+        lap("reference")
+        out[arch]["seconds"] = laps
+    total = {k: sum(l[k] for l in launches) for k in launches[0]}
+    return total, {"launches": total, **out}
 
 
 # ------------------------------------------------------ the GPTPU path
@@ -2364,6 +2731,10 @@ def main() -> int:
               **check_gptpu_reference(dev, gptpu["lowering"]))
         phase("gptpu_profile", card=card, lowering=gptpu["lowering"],
               **profile_gptpu(dev, gptpu["lowering"]))
+        moe_launches, moe = check_moe()
+        phase("moe", card=card, **moe)
+        dense_launches, dense = check_dense_configs()
+        phase("dense_configs", card=card, **dense)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2378,7 +2749,8 @@ def main() -> int:
                                  chunked["fused_contiguous"]),
                "prefix_cache": prefix["launches"], "sampling": sampling_launches,
                "speculative": spec_launches, "fleet": fleet_launches,
-               "gptpu": gptpu["launches"], "ops": ops_launches}
+               "gptpu": gptpu["launches"], "ops": ops_launches,
+               "moe": moe_launches, "dense_configs": dense_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape
 

@@ -109,12 +109,10 @@ def _sm_count(index: int) -> int:
 
 
 def _i32_product(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
-    """Exact int32 product of int8 operands: an int32 matmul on the CPU (an
-    int8 one would wrap); on CUDA, which has no integer matmul, a float64 one
-    cast back, which holds every partial sum exactly (|sum| <= K * 127^2 <
-    2^53)."""
-    if a_q.device.type == "cpu":
-        return a_q.to(torch.int32) @ b_q.to(torch.int32)
+    """Exact int32 product of int8 operands, as a float64 matmul cast back
+    (CUDA has no integer matmul, and the CPU's is a few times slower than
+    its float64 one): every partial sum is an integer of magnitude at most
+    K * 127^2 < 2^53, so each is exact in any order."""
     return (a_q.to(torch.float64) @ b_q.to(torch.float64)).to(torch.int32)
 
 

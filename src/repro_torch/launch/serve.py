@@ -5,6 +5,11 @@ continuous-batching engine with the Tensorizer W8A8 path.
         --cache-backend paged --paged-native --paged-kernel \\
         --requests 8 --prompt-len 128 --gen 32 --slots 8 --stagger-steps 2
 
+``--arch`` takes every ported config (repro_torch.configs.ARCH_IDS): the
+dense tinyllama-1.1b, qwen3-14b (qk_norm), starcoder2-15b (LayerNorm,
+GeLU) and granite-20b (MQA), and the MoE deepseek-moe-16b and
+moonshot-v1-16b-a3b.
+
 ``--cache-backend contiguous`` leases per-slot rows sized to the sequence
 budget; ``paged`` leases blocks from a pool, decoded through the gather
 bridge, or block-natively with ``--paged-native`` (plain torch) and
@@ -31,8 +36,10 @@ decode hosts adopting shipped KV blocks. ``--api-port P`` serves the engine
 port the OS picks) until SIGINT or SIGTERM.
 
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
-versions (use ``--smoke`` there: full width is 1.1B parameters). Weights are
-random, drawn from a ``torch.Generator`` seeded with ``--seed`` (the
+versions (use ``--smoke`` there: full width is 1.1B parameters and more).
+With ``--quantize serve`` the weights are built layer by layer, each layer
+quantized before the next is drawn (models/model.py
+``init_model_quantized``). Weights are random, drawn from a ``torch.Generator`` seeded with ``--seed`` (the
 draft's too, so a draft of the target's config is the target); the prompts
 come from a numpy generator seeded the same way. The report lines are those
 of ``repro.launch.serve``'s single-host branch.
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config
 from repro_torch.models.model import count_qtensors
 from repro_torch.serving.api import serve_api
 from repro_torch.serving.engine import Engine, EngineConfig, Request
@@ -63,16 +71,24 @@ from repro_torch.serving.transport import (
 )
 
 
+# leaves named like projections that stay float, as in the JAX package:
+# depthwise conv taps, the sLSTM block's FFN beside its recurrence, and the
+# sLSTM recurrence weights
+QUANT_SKIP = frozenset({"conv_w", "wup", "wdown", "rz", "ri", "rf", "ro"})
+
+
 def quant_predicate(path, leaf) -> bool:
     """Quantize projection weights only (names starting with "w", plus
-    lm_head); norms and the embedding table stay float."""
+    lm_head, less ``QUANT_SKIP``); norms, the router, the embedding table
+    and the recurrence weights stay float."""
     name = path[-1] if path else ""
-    return name == "lm_head" or name.startswith("w")
+    return (name == "lm_head" or name.startswith("w")) and name not in QUANT_SKIP
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="a ported config (repro_torch.configs.ARCH_IDS)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced CPU-test widths (not the served model)")
     ap.add_argument("--quantize", default="off", choices=["off", "serve"])
@@ -314,6 +330,11 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
     for stop in args.stop or []:
         if not all(t.strip().lstrip("-").isdigit() for t in stop.split(",")):
             ap.error(f"--stop takes comma-separated token ids, got {stop!r}")
+    for arch in [args.arch] + ([args.draft_config] if args.speculative else []):
+        try:
+            get_config(arch)
+        except ValueError as e:
+            ap.error(str(e))
     device = resolve_device(args.device)
 
     cfg, params = build_model(args.arch, args, device)

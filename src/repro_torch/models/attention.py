@@ -1,8 +1,8 @@
 """Attention for the serving path: QKV projection, fused and chunked prefill
 that emit cache-layout K/V, contiguous decode, and block-native paged decode.
 
-The port of ``repro.models.attention``'s serving subset, float and int8 KV,
-with the speculative verify window (``verify_decode_attention``,
+The port of ``repro.models.attention``'s serving subset (RoPE, qk_norm),
+float and int8 KV, with the speculative verify window (``verify_decode_attention``,
 ``paged_verify_attention``).
 Every score and value contraction runs in f32 against the cache-dtype K/V
 (int8 entries dequantized first, exactly as decode reads them back), the
@@ -31,12 +31,16 @@ QMAX = 127.0
 
 def init_attn(gen: torch.Generator, cfg: ArchConfig, d: int, device=None) -> Dict:
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    return {
+    p = {
         "wq": L.dense_init(gen, (d, H * hd), device=device),
         "wk": L.dense_init(gen, (d, KV * hd), device=device),
         "wv": L.dense_init(gen, (d, KV * hd), device=device),
         "wo": L.dense_init(gen, (H * hd, d), device=device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    return p
 
 
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig,
@@ -46,8 +50,12 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     q = L.pdot(x, p["wq"], cfg).reshape(B, S, H, hd)
     k = L.pdot(x, p["wk"], cfg).reshape(B, S, KV, hd)
     v = L.pdot(x, p["wv"], cfg).reshape(B, S, KV, hd)
-    if cfg.rope_kind != "rope" or cfg.qk_norm:
-        raise ValueError("only plain RoPE attention is ported (ROADMAP queue 1 item 11)")
+    if cfg.rope_kind != "rope":
+        raise ValueError(f"rope_kind {cfg.rope_kind!r} is not ported yet, only plain "
+                         f"RoPE (M-RoPE: ROADMAP queue 1 item 11)")
+    if cfg.qk_norm:
+        q = L.rms_head_norm(q, p["q_norm"])
+        k = L.rms_head_norm(k, p["k_norm"])
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -1,6 +1,7 @@
-"""Shared model layers: the W8A8 matmul, norms, the MLP, RoPE, init.
+"""Shared model layers: the W8A8 matmul, norms (RMSNorm, LayerNorm and
+qk_norm's head norm), the MLP (SwiGLU and GeLU), RoPE, init.
 
-The port of ``repro.models.layers``'s dense subset. Params are nested dicts
+The port of ``repro.models.layers`` without M-RoPE. Params are nested dicts
 of tensors; compute dtype is ``cfg.dtype`` (bf16) while norm and RoPE math
 run in f32, as in the JAX package.
 """
@@ -49,26 +50,63 @@ def pdot(x: torch.Tensor, w: Union[torch.Tensor, tz.QTensor],
     return torch.matmul(x, w.to(cdtype(cfg)))
 
 
+def init_norm(cfg: ArchConfig, d: int, device=None) -> Dict:
+    """Norm params: ``scale`` ones, and LayerNorm's ``bias`` zeros."""
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
 def apply_norm(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in f32, cast back to the input dtype, in one fused
-    ``F.rms_norm``: it sums each row in an order fixed by the row's length,
-    whatever the number of rows, so a prefill row (S rows in the call) keeps
-    the bits of the decode row at its position (B rows) and a continuation
-    re-admitted by prefill continues the stream. PyTorch's CUDA
-    ``torch.mean`` picks its plan from the number of rows and would not."""
-    if cfg.norm != "rmsnorm":
-        raise ValueError(f"norm {cfg.norm!r} is not ported yet (ROADMAP queue 1 item 11)")
+    """RMSNorm or LayerNorm in ``cfg.norm_dtype`` (f32), cast back to the
+    input dtype, each in one fused call (``F.rms_norm``, ``F.layer_norm``):
+    it reduces each row in an order fixed by the row's length, whatever the
+    number of rows, so a prefill row (S rows in the call) keeps the bits of
+    the decode row at its position (B rows) and a continuation re-admitted
+    by prefill continues the stream. PyTorch's CUDA ``torch.mean`` picks its
+    plan from the number of rows and would not. LayerNorm is the
+    reference's ``(x - mean) * rsqrt(var + eps) * scale + bias`` (biased
+    variance) up to the order of its row sums."""
     xf = x.to(_DTYPES[cfg.norm_dtype])
-    return F.rms_norm(xf, (xf.shape[-1],), p["scale"].to(xf.dtype), eps).to(x.dtype)
+    shape = (xf.shape[-1],)
+    if cfg.norm == "layernorm":
+        out = F.layer_norm(xf, shape, p["scale"].to(xf.dtype), p["bias"].to(xf.dtype), eps)
+    elif cfg.norm == "rmsnorm":
+        out = F.rms_norm(xf, shape, p["scale"].to(xf.dtype), eps)
+    else:
+        raise ValueError(f"norm {cfg.norm!r}: expected rmsnorm or layernorm")
+    return out.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """qk_norm (qwen3): RMS-normalize the last (head) dim of q or k in f32,
+    cast back to x's dtype; one ``F.rms_norm``, row-count invariant as
+    :func:`apply_norm` is."""
+    xf = x.to(torch.float32)
+    return F.rms_norm(xf, (xf.shape[-1],), scale.to(torch.float32), eps).to(x.dtype)
+
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, d: int, f: int, device=None) -> Dict:
+    """MLP params in draw order: SwiGLU ``wi``, ``wg``, ``wo``; GeLU ``wi``,
+    ``wo`` (the reference's trees)."""
+    names = ("wi", "wg", "wo") if cfg.act == "swiglu" else ("wi", "wo")
+    return {n: dense_init(gen, (f, d) if n == "wo" else (d, f), device=device)
+            for n in names}
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """SwiGLU: ``silu(x @ wi) * (x @ wg)`` then ``@ wo``. ``wi`` is the
-    projection under silu and ``wg`` the multiplier, as in the JAX package."""
-    if cfg.act != "swiglu":
-        raise ValueError(f"act {cfg.act!r} is not ported yet (ROADMAP queue 1 item 11)")
-    h = silu(pdot(x, p["wi"], cfg)) * pdot(x, p["wg"], cfg)
+    """SwiGLU: ``silu(x @ wi) * (x @ wg)`` then ``@ wo`` (``wi`` is the
+    projection under silu and ``wg`` the multiplier, as in the JAX
+    package); GeLU: ``gelu(x @ wi) @ wo``."""
+    h = pdot(x, p["wi"], cfg)
+    if cfg.act == "swiglu":
+        h = silu(h) * pdot(x, p["wg"], cfg)
+    elif cfg.act == "gelu":
+        h = gelu(h)
+    else:
+        raise ValueError(f"act {cfg.act!r}: expected swiglu or gelu")
     return pdot(h, p["wo"], cfg)
 
 
@@ -78,6 +116,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     instead, which moves bf16 results and, through the next layer's int8
     requantization, whole codes."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form, op by op in x's dtype, each op
+    rounded as its lowering rounds: ``x * (0.5 * (1 + tanh(sqrt(2/pi) *
+    (x + 0.044715 * x**3))))``, with ``x**3`` as ``(x * x) * x`` and both
+    constants rounded to x's dtype first, as JAX casts them. A fused
+    ``F.gelu`` rounds once instead (see :func:`silu`)."""
+    def const(c):
+        return torch.full((), c, dtype=x.dtype, device=x.device)
+    inner = const(0.7978845608028654) * (x + const(0.044715) * (x * x * x))
+    return x * (0.5 * (1 + torch.tanh(inner)))
 
 
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Serving path: cache construction, fused, chunked and suffix
 prefill-with-cache, contiguous decode, block-native paged decode and the
 speculative verify window on both layouts — the port of
-``repro.models.serve``'s dense subset, float and int8 KV.
+``repro.models.serve`` for the dense and MoE families, float and int8 KV.
+MoE layers route with the reference's capacity mode on each path: the
+``active`` idle mask at decode, row-isolated at every prefill and verify.
 
-Cache dicts (dense family):
+Cache dicts (dense and moe families):
   contiguous  {"k", "v": (L, B, S, KV, hd), "index": (B,)}
   paged       {"k", "v": (L, NB, bs, KV, hd), "index": (B,), "tables": (B, MB)}
 plus {"k_scale", "v_scale"} (the same shapes without hd, f32) with the int8
@@ -36,18 +38,12 @@ def _with_scales(cfg: ArchConfig, cache: Dict, shape, device) -> Dict:
     return cache
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"the port's serving cache is a dense-family layout, not "
-                         f"{cfg.family} (other families: ROADMAP queue 1 item 11)")
-
-
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
                per_slot_index: bool = False, device=None) -> Dict:
     """Contiguous serving cache: K/V rows (L, B, S, KV, hd) in the cache
     dtype (+ int8 scales), and the index: (B,) per slot with
     ``per_slot_index`` (the continuous-batching layout), else ()."""
-    _check_dense(cfg)
+    M.check_family(cfg)
     cache = A.init_cache(cfg, cfg.n_layers, batch, seq, _kv_dtype(cfg), device=device)
     if per_slot_index:
         cache["index"] = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -60,7 +56,7 @@ def init_paged_cache(cfg: ArchConfig, n_slots: int, n_blocks: int,
     dtype (+ int8 scales (L, NB, bs, KV)), addressed through per-slot block
     tables (B, MB); per-slot index (B,). Block 0 is the reserved null block
     (serving/store.py)."""
-    _check_dense(cfg)
+    M.check_family(cfg)
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv, cfg.hd)
     cache = {
         "k": torch.zeros(shape, dtype=_kv_dtype(cfg), device=device),
@@ -133,7 +129,7 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     """The chunked and suffix prefill's shared body: zeroed (cold) or
     ``kv0``-seeded accumulators, then positions ``start..S - 1`` in pieces of
     ``width`` (the last may be shorter), one chunk body for both."""
-    _check_dense(cfg)
+    M.check_family(cfg)
     B, S = tokens.shape
     int8_kv = cfg.kv_cache_dtype == "int8"
     names = M.kv_names(cfg)
@@ -158,7 +154,7 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                 k_acc=accs["k"], v_acc=accs["v"], k_sc_acc=accs.get("k_scale"),
                 v_sc_acc=accs.get("v_scale"), int8_kv=int8_kv, decode_rows=decode_rows)
             h = L.apply_norm(lp["ln2"], x, cfg)
-            x = x + L.apply_mlp(lp["mlp"], h, cfg)
+            x = x + M.ffn(lp, h, cfg, row_isolated=True)
         # carry each row's last-prompt-position hidden state
         rel = last_index.long() - lo
         in_piece = (rel >= 0) & (rel < w)
@@ -173,12 +169,14 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 # ===========================================================================
 
 def _decode_layers(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
-                   attend) -> torch.Tensor:
+                   attend, active: Optional[torch.Tensor] = None,
+                   row_isolated: bool = False) -> torch.Tensor:
     """The decode stack shared by the contiguous and paged layouts:
     ``attend(layer_params, h, i, scales)`` runs layer i's attention (writing
     its cache leaves in place). Returns the logits (B, T, V_pad) of tokens
     (B, T): one position per slot at decode, the window at verify (the
-    RMSNorm's row sums do not depend on T: layers.apply_norm)."""
+    norms' row sums do not depend on T: layers.apply_norm). MoE layers take
+    ``active`` (decode) or ``row_isolated`` (verify)."""
     int8_kv = "k_scale" in cache
     x = M.embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
@@ -187,44 +185,49 @@ def _decode_layers(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Ten
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8_kv else None
         x = x + attend(lp["attn"], h, i, scales)
         h = L.apply_norm(lp["ln2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+        x = x + M.ffn(lp, h, cfg, active=active, row_isolated=row_isolated)
     return M._head(params, cfg, L.apply_norm(params["final_ln"], x, cfg))
 
 
-def decode(params: Dict, cfg: ArchConfig, cache: Dict,
-           tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+def decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
+           active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode against contiguous rows with a per-slot index.
-    ``tokens`` is (B, 1). Every layer writes the new token's K/V at its
+    ``tokens`` is (B, 1); ``active`` (B,) bool masks idle slots out of the
+    MoE capacity cumsum (the engine passes it on every step). Every layer writes the new token's K/V at its
     row's index, in place, and attends positions up to it. Returns
     ``(logits, cache)``: the same leaf tensors and a NEW index tensor
     ``index + 1`` (the input index is never modified, so a re-issued step
     sees the same positions)."""
-    _check_dense(cfg)
+    M.check_family(cfg)
     index = cache["index"]
 
     def attend(lp, h, i, scales):
         return A.decode_attention(lp, h, cache["k"][i], cache["v"][i], index, cfg,
                                   cache_scales=scales)
-    return _decode_layers(params, cfg, cache, tokens, attend), dict(cache, index=index + 1)
+    return (_decode_layers(params, cfg, cache, tokens, attend, active=active),
+            dict(cache, index=index + 1))
 
 
 def decode_paged(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor, *,
-                 use_kernel: bool = True) -> Tuple[torch.Tensor, Dict]:
+                 use_kernel: bool = True,
+                 active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Block-native single-token decode over the paged pool. ``tokens`` is
-    (B, 1). Each layer writes the new token's K/V into its pool cell through
-    the tables, in place, and attends block-natively: through the
+    (B, 1); ``active`` as in :func:`decode`. Each layer writes the new
+    token's K/V into its pool cell through the tables, in place, and
+    attends block-natively: through the
     paged-attention kernel with ``use_kernel`` and float KV, else by the
     plain per-layer gather and contraction (models/attention.py
     ``paged_decode_attention``). Returns ``(logits, cache)``: the same pool
     tensors and a NEW index tensor ``index + 1``."""
-    _check_dense(cfg)
+    M.check_family(cfg)
     index, tables = cache["index"], cache["tables"]
 
     def attend(lp, h, i, scales):
         return A.paged_decode_attention(lp, h, cache["k"][i], cache["v"][i], tables,
                                         index, cfg, cache_scales=scales,
                                         use_kernel=use_kernel)
-    return _decode_layers(params, cfg, cache, tokens, attend), dict(cache, index=index + 1)
+    return (_decode_layers(params, cfg, cache, tokens, attend, active=active),
+            dict(cache, index=index + 1))
 
 
 # ===========================================================================
@@ -247,17 +250,18 @@ def verify_window(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tens
     (models/attention.py ``verify_decode_attention``); the attention
     contractions run at decode's one-position shapes and the RMSNorms' row
     sums are row-count invariant, so position j's logits are the bits
-    :func:`decode` gives after accepting j tokens.
-    Dense family only (MoE targets: ROADMAP queue 1 item 11). Returns
+    :func:`decode` gives after accepting j tokens. MoE layers route the
+    window row-isolated (dropless, so a position's experts and their
+    outputs are decode's). Returns
     ``(logits (B, W, V_pad), cache)`` with a NEW index ``index + W``; the
     engine sets each slot's true position through the store's rollback."""
-    _check_dense(cfg)
+    M.check_family(cfg)
     positions = _window_positions(cache, tokens, window)
 
     def attend(lp, h, i, scales):
         return A.verify_decode_attention(lp, h, cache["k"][i], cache["v"][i], positions,
                                          cfg, cache_scales=scales)
-    return (_decode_layers(params, cfg, cache, tokens, attend),
+    return (_decode_layers(params, cfg, cache, tokens, attend, row_isolated=True),
             dict(cache, index=cache["index"] + window))
 
 
@@ -267,12 +271,12 @@ def verify_window_paged(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torc
     paged pool and the block tables (models/attention.py
     ``paged_verify_attention``); window cells past a slot's extent go to
     the null block. Same logits, same index contract."""
-    _check_dense(cfg)
+    M.check_family(cfg)
     positions = _window_positions(cache, tokens, window)
     tables = cache["tables"]
 
     def attend(lp, h, i, scales):
         return A.paged_verify_attention(lp, h, cache["k"][i], cache["v"][i], tables,
                                         positions, cfg, cache_scales=scales)
-    return (_decode_layers(params, cfg, cache, tokens, attend),
+    return (_decode_layers(params, cfg, cache, tokens, attend, row_isolated=True),
             dict(cache, index=cache["index"] + window))

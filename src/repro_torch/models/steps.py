@@ -82,10 +82,13 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
     """Contiguous decode step: ``(params, cache, tokens (B, 1))`` ->
     ``(next_tokens (B,), cache)``; the contiguous store and the paged gather
     bridge both run it. The rows are written in place where the JAX engine
-    donates the cache; the index comes back as a new tensor."""
+    donates the cache; the index comes back as a new tensor. ``active``
+    (B,) bool, the engine's busy slots, masks idle slots out of the MoE
+    capacity cumsum (models/moe.py)."""
     def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
-                    sampling: Optional[Dict] = None):
-        logits, cache = SV.decode(params, cfg, cache, tokens)
+                    sampling: Optional[Dict] = None,
+                    active: Optional[torch.Tensor] = None):
+        logits, cache = SV.decode(params, cfg, cache, tokens, active=active)
         return _emit(cfg, logits[:, -1], cache, sampling, cache["index"])
     return decode_step
 
@@ -93,10 +96,13 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
 def make_paged_decode_step(cfg: ArchConfig, use_kernel: bool = True) -> Callable:
     """Block-native decode step: ``(params, cache, tokens (B, 1))`` ->
     ``(next_tokens (B,), cache)``, through the paged-attention kernel with
-    ``use_kernel`` (float KV) or the plain gather and contraction."""
+    ``use_kernel`` (float KV) or the plain gather and contraction; ``active``
+    as in :func:`make_decode_step`."""
     def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
-                    sampling: Optional[Dict] = None):
-        logits, cache = SV.decode_paged(params, cfg, cache, tokens, use_kernel=use_kernel)
+                    sampling: Optional[Dict] = None,
+                    active: Optional[torch.Tensor] = None):
+        logits, cache = SV.decode_paged(params, cfg, cache, tokens, use_kernel=use_kernel,
+                                        active=active)
         return _emit(cfg, logits[:, -1], cache, sampling, cache["index"])
     return decode_step
 

@@ -1,11 +1,11 @@
 """Continuous-batching inference engine over the OPQ runtime — the port of
-``repro.serving.engine``'s single-host engine for a dense model, float or
-int8 KV, through every SlotStore route of the reference (contiguous rows;
+``repro.serving.engine``'s single-host engine for a dense or MoE model,
+float or int8 KV, through every SlotStore route of the reference (contiguous rows;
 the paged pool through the gather bridge, block-natively in plain torch, or
 block-natively through the paged-attention kernel), with chunked prefill
 for long prompts, the shared-prefix radix cache, per-request sampling,
-stop sequences and logprobs, greedy speculative decode with a dense draft,
-and the non-generative ``embed`` forward.
+stop sequences and logprobs, greedy speculative decode with a dense or MoE
+draft, and the non-generative ``embed`` forward.
 
 Requests enter a bounded FIFO (admission control); a slot scheduler joins
 them into a fixed-width in-flight decode batch and retires them as they
@@ -52,6 +52,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.opq import OPQ, Buffer
 from repro_torch.models import steps as ST
 from repro_torch.models.attention import DecodeRows
+from repro_torch.models.model import check_family
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics, now
 from repro_torch.serving.sampling import (
     GREEDY, TOP_LOGPROBS, SamplingParams, sampling_to_wire, stack_params, stop_match,
@@ -123,9 +124,10 @@ class Request:
 class EngineConfig:
     """Per-engine serving knobs, the JAX package's fields; see
     ``repro.serving.engine.EngineConfig`` for each field's meaning. The port
-    serves every field for a dense target; ``cache_backend="recurrent"``
-    and a draft of another family raise a ValueError naming ROADMAP queue 1
-    item 11, which ports those families."""
+    serves every field for a dense or MoE target; ``cache_backend=
+    "recurrent"`` and a target or draft of another family raise a
+    ValueError naming ROADMAP queue 1 item 11, which ports those
+    families."""
 
     max_slots: int = 4
     max_queue: int = 64
@@ -147,10 +149,10 @@ class EngineConfig:
 
 def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
     """The reference's construction checks, and the families still to port."""
-    if cfg.family != "dense" or cfg.input_mode != "tokens":
-        raise ValueError(
-            f"the port serves token-input dense archs, got family={cfg.family} "
-            f"input_mode={cfg.input_mode} (other families: ROADMAP queue 1 item 11)")
+    check_family(cfg)
+    if cfg.input_mode != "tokens":
+        raise ValueError(f"the port serves token-input archs, got input_mode="
+                         f"{cfg.input_mode} (ROADMAP queue 1 item 11)")
     if ecfg.speculative:
         if ecfg.draft is None or draft_params is None:
             raise ValueError("speculative decode needs a draft model: set "
@@ -166,11 +168,10 @@ def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
         if d.vocab != cfg.vocab:
             raise ValueError(f"draft vocab {d.vocab} != target vocab {cfg.vocab}: "
                              f"draft proposals must be target token ids")
-        if d.family != "dense" or d.input_mode != "tokens":
-            raise ValueError(
-                f"the port's draft must be a token-input dense arch, got "
-                f"family={d.family} input_mode={d.input_mode} (moe and recurrent "
-                f"drafts: ROADMAP queue 1 item 11)")
+        check_family(d)
+        if d.input_mode != "tokens":
+            raise ValueError(f"the port's draft must be a token-input arch, got "
+                             f"input_mode={d.input_mode} (ROADMAP queue 1 item 11)")
     elif ecfg.draft is not None:
         raise ValueError("EngineConfig.draft is set but speculative=False: enable "
                          "speculative or drop the draft config")
@@ -522,12 +523,12 @@ class Engine:
                                    self._presence.copy()), name="sampling")
 
     def _decode_once(self) -> None:
-        toks, _ = self.scheduler.decode_batch()
+        toks, active = self.scheduler.decode_batch()
         next_tok, cache, lp = self._dispatch(
             self._decode, self._params_buf,
             self._resident(self.store.decode_cache(), "kv-cache"),
             Buffer(toks, name="decode-tokens"), self._sampling_batch(),
-            flags="decode")
+            Buffer(active, name="decode-active"), flags="decode")
         self.store.swap(cache)
         self.metrics.decode_steps += 1
         next_np = next_tok.cpu().numpy()
@@ -552,7 +553,8 @@ class Engine:
         k = self.ecfg.spec_k
         W = k + 1
         n = self.ecfg.max_slots
-        toks, _ = self.scheduler.decode_batch()
+        toks, active = self.scheduler.decode_batch()
+        active_buf = Buffer(active, name="draft-active")
         # window column 0: each slot's last emitted token; 1..k: proposals
         window = np.zeros((n, W), np.int32)
         window[:, 0] = toks[:, 0]
@@ -561,7 +563,8 @@ class Engine:
             nxt, dcache = self._dispatch(
                 self._draft_decode, self._draft_params_buf,
                 self._resident(self.draft_store.decode_cache(), "draft-cache"),
-                Buffer(cur, name="draft-tokens"), flags="draft_decode")
+                Buffer(cur, name="draft-tokens"), Buffer(None), active_buf,
+                flags="draft_decode")
             self.draft_store.swap(dcache)
             self.metrics.draft_steps += 1
             nxt_np = nxt.cpu().numpy().astype(np.int32)

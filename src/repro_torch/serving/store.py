@@ -1,5 +1,5 @@
 """SlotStore: the serving cache behind one protocol — the port of
-``repro.serving.store`` for the dense family.
+``repro.serving.store`` for the dense and moe families.
 
 The engine decodes a fixed ``n_slots``-row batch; each row ("slot") is
 leased to one in-flight request. Everything the engine knows about the
@@ -64,6 +64,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import serve as SV
+from repro_torch.models.model import check_family
 
 _META = ("index", "tables")
 
@@ -227,15 +228,13 @@ class SlotStore(abc.ABC):
 
 
 class ContiguousKVStore(SlotStore):
-    """Dense-family K/V rows sized to ``max_seq_len``: k/v (L, B, S, KV, hd)
+    """Dense- and moe-family K/V rows sized to ``max_seq_len``: k/v (L, B, S, KV, hd)
     and int8 scales (L, B, S, KV) carry the slot on axis 1; index (B,)."""
 
     kind = "contiguous"
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_seq_len: int, device=None):
-        if cfg.family != "dense":
-            raise ValueError(f"ContiguousKVStore supports dense-family caches, "
-                             f"not {cfg.family}")
+        check_family(cfg)
         super().__init__(cfg, n_slots, max_seq_len, device)
 
     def alloc(self) -> Dict:
@@ -287,8 +286,7 @@ class PagedKVStore(SlotStore):
     def __init__(self, cfg: ArchConfig, n_slots: int, max_seq_len: int, *,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  native: bool = False, prefix_cache: bool = False, device=None):
-        if cfg.family != "dense":
-            raise ValueError(f"PagedKVStore supports dense-family caches, not {cfg.family}")
+        check_family(cfg)
         if max_seq_len % block_size:
             # the gathered view must be exactly max_seq_len long, so the bridge
             # runs the contiguous store's decode step: the bit-identity contract
@@ -892,8 +890,8 @@ def make_store(cfg: ArchConfig, n_slots: int, max_seq_len: int,
                n_blocks: Optional[int] = None, native: bool = False,
                prefix_cache: bool = False, device=None) -> SlotStore:
     """Build the SlotStore backend for a config. ``backend="auto"`` picks
-    contiguous for the dense family (recurrent for ssm/hybrid, which are not
-    ported). ``native`` and ``prefix_cache`` are paged-only."""
+    contiguous for the dense and moe families (recurrent for ssm/hybrid,
+    which are not ported). ``native`` and ``prefix_cache`` are paged-only."""
     if backend == "auto":
         backend = "recurrent" if cfg.family in ("ssm", "hybrid") else "contiguous"
     if native and backend != "paged":

@@ -210,12 +210,14 @@ def build_model_spec(arch: str, *, smoke: bool = True, quantize: str = "off",
 
 
 def _build_weights(entry: Dict, device):
-    """(cfg, params) of one spec entry, as ``launch/serve.py`` builds them."""
+    """(cfg, params) of one spec entry, as ``launch/serve.py`` builds them:
+    W8A8 through the streamed build (layer by layer, bitwise the quantized
+    whole-model init)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import tensorizer as tz
     from repro_torch.launch.serve import quant_predicate
     from repro_torch.models import init_model
+    from repro_torch.models.model import init_model_quantized
     cfg = get_config(entry["arch"])
     if entry.get("smoke", True):
         cfg = cfg.smoke()
@@ -223,10 +225,9 @@ def _build_weights(entry: Dict, device):
     cfg = cfg.replace(**(entry.get("overrides") or {}), quantize=quantize)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(entry.get("seed", 0)))
-    params = init_model(cfg, gen, device=device)
     if quantize == "serve":
-        params = tz.quantize_params(params, predicate=quant_predicate)
-    return cfg, params
+        return cfg, init_model_quantized(cfg, gen, quant_predicate, device=device)
+    return cfg, init_model(cfg, gen, device=device)
 
 
 def realize_model_spec(spec: Dict):

@@ -61,8 +61,10 @@ def test_configs_match_reference():
     assert dataclasses.asdict(TCFG) == dataclasses.asdict(CFG)
     assert (dataclasses.asdict(tget_config("tinyllama-1.1b"))
             == dataclasses.asdict(get_config("tinyllama-1.1b")))
+    assert (dataclasses.asdict(tget_config("qwen3-14b"))
+            == dataclasses.asdict(get_config("qwen3-14b")))
     with pytest.raises(ValueError, match="ROADMAP"):
-        tget_config("qwen3-14b")
+        tget_config("zamba2-7b")
 
 
 @pytest.mark.parametrize("shape,K,N", [((2, 5), 64, 96), ((1, 1), 128, 256),

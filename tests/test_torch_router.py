@@ -1,12 +1,11 @@
 """The port's multi-host Router (repro_torch.serving.router) on the CPU:
 the ports of tests/test_router.py at smoke widths with the same traffic,
-seeds and assertions (the MoE case waits for the MoE family, ROADMAP queue
-1 item 11), and the port's fleet against the reference fleet.
+seeds and assertions, and the port's fleet against the reference fleet.
 
   * bit-identity — staggered multi-host serving (affinity placement,
                    spills, a mid-run drain/handoff) gives exactly the tokens
                    of one engine serving the requests one at a time, bf16
-                   and int8 KV
+                   and int8 KV, and for the MoE family (moonshot-v1-16b-a3b)
   * drain/handoff, affinity, spill, the fleet door, direct engine submits,
     config validation, the Engine's drain hooks, ``available_now`` and the
     three-level ``stats()`` — as in the reference's tests
@@ -104,6 +103,24 @@ def test_multi_host_bit_identical_to_sequential(params, kv_dtype):
     drained, s_drain, reqs = _fleet_staggered(params, prompts, gens, cfg=cfg, drain_at=2)
     assert drained == sequential                  # ... across drain/handoff
     assert s_drain["router"]["handoffs"] >= 1     # the drain really handed off
+    assert any(len(r.hosts) > 1 for r in reqs)
+
+
+def test_moe_multi_host_bit_identical_to_sequential():
+    """The reference's MoE case of the test above: a MoE fleet (decode masks
+    idle slots out of the expert capacity, a handed-off continuation
+    re-admits row-isolated) gives each request's tokens alone."""
+    cfg = get_config("moonshot-v1-16b-a3b").smoke()
+    moe_params = init_model(cfg, torch.Generator().manual_seed(1))
+    prompts = _prompts([5, 9, 4, 7], cfg=cfg)
+    gens = [8, 6, 8, 5]
+    sequential = _sequential(moe_params, prompts, gens, cfg=cfg)
+    plain, _, _ = _fleet_staggered(moe_params, prompts, gens, cfg=cfg)
+    assert plain == sequential
+    drained, s_drain, reqs = _fleet_staggered(moe_params, prompts, gens, cfg=cfg,
+                                              drain_at=2)
+    assert drained == sequential
+    assert s_drain["router"]["handoffs"] >= 1
     assert any(len(r.hosts) > 1 for r in reqs)
 
 

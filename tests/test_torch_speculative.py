@@ -469,11 +469,14 @@ def test_spec_config_validation(params):
     with pytest.raises(ValueError, match="paged_kernel|kernel"):
         build(cache_backend="paged", paged_native=True, paged_kernel=True, **_spec_kw())
     # the families still to port name the ROADMAP item that ports them
-    with pytest.raises(ValueError, match="item 11"):
-        build(cfg=CFG.replace(family="moe"), **_spec_kw())
-    for family in ("ssm", "hybrid", "moe"):
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(ValueError, match="item 11"):
+            build(cfg=CFG.replace(family=family), **_spec_kw())
         with pytest.raises(ValueError, match="item 11"):
             build(**_spec_kw(CFG.replace(family=family)))
+    # a MoE target and a MoE draft are served (tests/test_torch_moe_engine.py)
+    moe = get_config("deepseek-moe-16b").smoke().replace(vocab=CFG.vocab)
+    build(**_spec_kw(moe)).close()
     eng = build(**_spec_kw())
     with pytest.raises(ValueError, match="greedy-only"):
         eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.7))
