@@ -78,7 +78,7 @@ seconds since the previous line):
                 row bitwise the fused prefill's; tok/s, TTFT, the sampled
                 and greedy decode step and the sampler's device time
  14. speculative — greedy draft-verify decode (spec_k = 4) on the serve
-                traffic (tinyllama at full width and 8 of its 22 layers),
+                traffic (tinyllama at full width and depth, 22 layers),
                 contiguous, gather bridge and block-native plain,
                 with the target's weights and other weights as the draft:
                 tokens and retire-time cache rows bitwise plain decode's,
@@ -124,11 +124,29 @@ seconds since the previous line):
                 launches held to each config's count, build seconds and
                 peak memory, tok/s, TTFT, a decode step's profile, and the
                 card against the CPU at 2 layers
+ 21. hybrid   — zamba2-7b at full width and depth (81 layers: 13 groups of
+                a shared attention block with its LoRA W_q and 6 Mamba2
+                layers, then 3) on the recurrent state store, streamed
+                W8A8 build (seconds, peak memory, weight bytes): the row
+                probes (the float W_q product, the ssm readout and the
+                gated norm at 1, 3, 8 and 64 rows, the port's forms
+                bitwise); 8 requests of 16 + 16 tokens 2 steps apart
+                twice (tokens equal, qgemm 403 launches a position:
+                admission replays the decode body over the bucket);
+                requests 0 and 7 alone; Engine.embed; a decode step's
+                profile (qgemm, the state update and readout, the W_q
+                merge, the rest); tinyllama-1.1b with a 13-layer zamba2
+                draft (tokens and rows bitwise plain decode's, the draft's
+                index in lockstep); the card against the CPU at 13 layers:
+                each layer on the CPU's input and one decode body within
+                check_reference's fixed rule, the admission and 3 steps
+                within twice the CPU's own one-ulp spread (that spread
+                capped), two planted Mamba2 faults failing all three
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
-sampling, speculative, fleet (its in-process runs), gptpu, ops, moe and
-dense_configs; ``ms`` and
+sampling, speculative, fleet (its in-process runs), gptpu, ops, moe,
+dense_configs and hybrid; ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -262,10 +280,15 @@ def qgemm_bound(M, K, N, out_bytes=2):
 # qwen3-14b (q and o 5120 x 5120, k and v 5120 x 1024, MLP 5120 <-> 17408,
 # lm_head 151936), starcoder2-15b (k and v 6144 x 512, MLP 6144 <-> 24576,
 # lm_head 49152) and granite-20b (k and v 6144 x 128); q and o of the last
-# two are 6144 x 6144
+# two are 6144 x 6144; and zamba2-7b (HYBRID_PAIRS)
+# zamba2-7b: a mamba layer's wz 3584 x 7168, wxbc 3584 x 7296, wdt 3584 x 112
+# and wo 7168 x 3584; the shared block's k, v and o 3584 x 3584 and MLP
+# 3584 <-> 14336; the lm_head 3584 x 32000
+HYBRID_PAIRS = ((3584, 7168), (3584, 7296), (3584, 112), (7168, 3584), (3584, 3584),
+                (3584, 14336), (14336, 3584), (3584, 32000))
 MODEL_PAIRS = ((2048, 2816), (2816, 2048), (2048, 102400), (5120, 5120), (5120, 1024),
                (5120, 17408), (17408, 5120), (5120, 151936), (6144, 6144), (6144, 512),
-               (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152))
+               (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152)) + HYBRID_PAIRS
 
 
 def check_qgemm(dev):
@@ -1083,21 +1106,29 @@ def check_reference(arch="tinyllama-1.1b", n_layers=None):
         "abs_max": float(c_pre.float().abs().max())}}
     for name, g, c in [("prefill", g_pre, c_pre)] + [
             (f"decode{i}", g, c) for i, (g, c) in enumerate(zip(g_steps, c_steps))]:
-        g, c = g.float().cpu(), c.float()
-        check(bool(torch.isfinite(g).all()), f"non-finite {name} logits on the card")
-        d = (g - c).abs()
-        scale, rms = float(c.abs().max()), float(d.pow(2).mean().sqrt())
-        check(float(d.max()) <= 0.06 * scale and rms <= 0.015 * scale,
-              f"card vs CPU {name} logits: max {float(d.max())}, rms {rms}, "
-              f"scale {scale}")
-        top2 = c.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > 0.3
-        check(torch.equal(g.argmax(-1)[clear], c.argmax(-1)[clear]),
-              f"card and CPU pick different clear greedy tokens ({name})")
-        out[name] = {"max_abs_diff": float(d.max()), "rms_diff": rms, "abs_max": scale,
-                     "clear_tokens_compared": int(clear.sum())}
+        out[name] = hold_card_to_cpu(name, g, c)
     out["arch"], out["n_layers"] = arch, cfg.n_layers
     return out
+
+
+def hold_card_to_cpu(name, g, c):
+    """check_reference's rule on one set of logits, card ``g`` against CPU
+    ``c``: finite, RMS difference <= 1.5% and max <= 6% of the CPU logits'
+    absolute max, the same greedy token wherever the CPU's top-2 margin
+    exceeds 0.3."""
+    import torch
+    g, c = g.float().cpu(), c.float()
+    check(bool(torch.isfinite(g).all()), f"non-finite {name} logits on the card")
+    d = (g - c).abs()
+    scale, rms = float(c.abs().max()), float(d.pow(2).mean().sqrt())
+    check(float(d.max()) <= FIXED_RULE[0] * scale and rms <= FIXED_RULE[1] * scale,
+          f"card vs CPU {name} logits: max {float(d.max())}, rms {rms}, scale {scale}")
+    top2 = c.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > CLEAR_MARGIN
+    check(torch.equal(g.argmax(-1)[clear], c.argmax(-1)[clear]),
+          f"card and CPU pick different clear greedy tokens ({name})")
+    return {"max_abs_diff": float(d.max()), "rms_diff": rms, "abs_max": scale,
+            "clear_tokens_compared": int(clear.sum())}
 
 
 def decode_stepper(cfg, params, B=8, P=128, seed=6):
@@ -1256,18 +1287,20 @@ ROUTES = {
                       "paged_kernel": True},
 }
 CLEAR_MARGIN = 0.3     # check_reference's clear top-2 margin
+FIXED_RULE = (0.06, 0.015)  # check_reference's max and RMS difference over the CPU's absolute max
 
 
-def serve_setup(arch=None, **replace):
+def serve_setup(arch=None, argv=None, **replace):
     """The serve phase's model, weights and prompts, as serve.run builds
-    them from SERVE_ARGS (``arch``: another ``--arch``; ``replace``: config
-    fields to change): the streamed W8A8 build."""
+    them from SERVE_ARGS (``argv``: other CLI arguments; ``arch``: another
+    ``--arch``; ``replace``: config fields to change): the streamed W8A8
+    build."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.model import init_model_quantized
-    argv = list(SERVE_ARGS)
+    argv = list(argv or SERVE_ARGS)
     if arch is not None:
         argv[argv.index("--arch") + 1] = arch
     args = serve.build_parser().parse_args(argv)
@@ -1329,7 +1362,7 @@ def drive(cfg, params, prompts, args, submit_kw=None, engine_cls=None, draft_par
                                       **(submit_kw(i) if submit_kw else {})))
             for _ in range(args.stagger_steps):
                 engine.step()
-        view = {n: t.clone() for n, t in engine.store.gather_view().items()}
+        view = clone_tree(engine.store.gather_view())
         engine.run_until_complete()
     finally:
         engine.close()
@@ -2188,16 +2221,16 @@ DENSE_ARCHS = ("qwen3-14b", "starcoder2-15b", "granite-20b")
 REFERENCE_LAYERS = 2   # depth of the card-vs-CPU reference of the other configs
 
 
-def build_arch(arch, **replace):
-    """``serve_setup(arch)`` timed, with the peak of allocated device memory
-    over the streamed build (above what was allocated before it) and the
-    weights' bytes."""
+def build_arch(arch, argv=None, **replace):
+    """``serve_setup(arch, argv)`` timed, with the peak of allocated device
+    memory over the streamed build (above what was allocated before it) and
+    the weights' bytes."""
     import torch
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    setup = serve_setup(arch, **replace)
+    setup = serve_setup(arch, argv, **replace)
     torch.cuda.synchronize()
     build = {"seconds": time.perf_counter() - t0,
              "device_peak_bytes": torch.cuda.max_memory_allocated() - before,
@@ -2404,6 +2437,535 @@ def check_dense_configs():
         out[arch]["seconds"] = laps
     total = {k: sum(l[k] for l in launches) for k in launches[0]}
     return total, {"launches": total, **out}
+
+
+# ------------------------------------------------------------ the hybrid
+
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_ARGS = ["--arch", HYBRID_ARCH, "--quantize", "serve", "--cache-backend", "recurrent",
+               "--slots", "8", "--requests", "8", "--prompt-len", "16", "--gen", "16",
+               "--stagger-steps", "2", "--device", "cuda"]
+HYBRID_ALONE = (0, 7)          # the requests served again alone
+HYBRID_EMBED_TOKENS = 32       # Engine.embed's prompt: one 32-position SSD chunk
+HYBRID_DRAFT_LAYERS = 13       # one period of the layer pattern: 2 groups and 1 tail layer
+HYBRID_REFERENCE_LAYERS = 13
+PROBE_ROWS = (1, 3, 8, 64)
+
+
+def hybrid_per_forward(cfg):
+    """qgemm launches per hybrid forward of one position: wz, wxbc, wdt and
+    wo in every mamba layer, k, v, o and the MLP's wi, wg, wo in every
+    shared-block application (its LoRA-merged W_q is a float product, not
+    a qgemm), and the lm_head."""
+    return 4 * cfg.n_layers + 6 * (cfg.n_layers // cfg.attn_every) + 1
+
+
+def scan_forwards(stats, flag):
+    """Forwards of the admissions flagged ``flag/<bucket>``: the masked scan
+    runs the decode body once per position of its bucket."""
+    return sum(int(k.split("/")[1]) * v for k, v in stats["opq"]["flags"].items()
+               if k.startswith(flag + "/"))
+
+
+def rows_invariant(fn, n_rows):
+    """Whether row 0 of ``fn(n)`` (a call on the first n rows of one input)
+    keeps its bits at every n of ``n_rows``, against n = 1."""
+    import torch
+    one = fn(1)[0]
+    return {n: bool(torch.equal(fn(n)[0], one)) for n in n_rows}
+
+
+def hybrid_row_probes(cfg):
+    """The three candidates for row bits that follow the row count, probed
+    at PROBE_ROWS rows: (a) the shared block's float W_q product, bf16, the
+    port's ``torch.matmul`` (layers.pdot's float branch); (b) the ssm
+    readout over N, f32
+    (``einsum("bhn,bhpn->bhp")`` against ssm.readout's tree); (c) the
+    gated RMSNorm over d_inner, f32 (``torch.mean`` of squares against
+    ``F.rms_norm``). The port's forms must keep a row's bits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssm as SSM
+    g = torch.Generator(device="cuda").manual_seed(21)
+    R = max(PROBE_ROWS)
+    D, HQ = cfg.d_model, cfg.n_heads * cfg.hd
+    H, P, N, di = SSM.n_ssm_heads(cfg), cfg.ssm_headdim, cfg.ssm_state, SSM.d_inner(cfg)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    x, w = randn(R, D, dtype=torch.bfloat16), (randn(D, HQ) * D ** -0.5).to(torch.bfloat16)
+    c, h = randn(R, H, N), randn(R, H, P, N)
+    y, scale = randn(R, di), randn(di)
+    out = {"rows": list(PROBE_ROWS), "wq_product": {
+        "torch_matmul": rows_invariant(lambda n: torch.matmul(x[:n], w), PROBE_ROWS)},
+        "ssm_readout": {
+        "einsum": rows_invariant(lambda n: torch.einsum("bhn,bhpn->bhp", c[:n], h[:n]),
+                                 PROBE_ROWS),
+        "tree": rows_invariant(lambda n: SSM.readout(c[:n], h[:n]), PROBE_ROWS)},
+        "gated_norm": {
+        "torch_mean": rows_invariant(lambda n: y[:n] * torch.rsqrt(
+            torch.mean(y[:n] * y[:n], -1, keepdim=True) + 1e-6) * scale, PROBE_ROWS),
+        "rms_norm": rows_invariant(lambda n: F.rms_norm(y[:n], (di,), scale, 1e-6),
+                                   PROBE_ROWS)}}
+    for probe, form in (("wq_product", "torch_matmul"), ("ssm_readout", "tree"),
+                        ("gated_norm", "rms_norm")):
+        check(all(out[probe][form].values()),
+              f"{probe}: the port's {form} form changes a row's bits with the row count")
+    return out
+
+
+def check_hybrid_launches(name, cfg, stats, launches):
+    forwards = stats["decode_steps"] + scan_forwards(stats, "prefill")
+    check(launches["qgemm"] == hybrid_per_forward(cfg) * forwards,
+          f"{name}: qgemm launched {launches['qgemm']} times, expected "
+          f"{hybrid_per_forward(cfg)} x {forwards} forwards")
+    check(launches["paged_decode_attention"] == 0, f"{name}: paged attention launched")
+    return forwards
+
+
+def hybrid_stepper(cfg, params, B=8, P=32, S=48):
+    """A served hybrid decode step at full width: 8 slots at position P of
+    S-position rows on the recurrent store, every slot active, greedy
+    tokens fed back. The rows start pristine (no admission): a step's work
+    does not depend on the state's values."""
+    import torch
+    from repro_torch.models import serve as SV
+    from repro_torch.serving.store import RecurrentStateStore
+    store = RecurrentStateStore(cfg, B, S, device="cuda")
+    store.cache = dict(store.cache, index=torch.full((B,), P, dtype=torch.int32,
+                                                     device="cuda"))
+    state = {"toks": torch.zeros((B, 1), dtype=torch.int32, device="cuda")}
+
+    def step():
+        logits, cache = SV.decode(params, cfg, store.decode_cache(), state["toks"])
+        store.swap(cache)
+        state["toks"] = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+    return step
+
+
+def profile_hybrid(cfg, params, n=1):
+    """A served hybrid decode step (``hybrid_stepper``): host wall ms,
+    device busy ms, its top kernels, and the device ms under qgemm, the
+    SSM state update and readout (``ssm.ssm_step``), the shared W_q's
+    dequantization and LoRA merge (``model.shared_attn_params``), and the
+    rest."""
+    from repro_torch.models import model as M, ssm as SSM
+    step = hybrid_stepper(cfg, params)
+    for _ in range(2):
+        step()
+    ranges = ((SSM, "ssm_step"), (M, "shared_attn_params"))
+    wall_ms, prof = measure_steps(step, n, ranges)
+    busy_ms, top = device_time(prof, n, 8, ranges=[f for _, f in ranges])
+    check(busy_ms > 0, f"{cfg.name}: the decode profile holds no device time")
+    qgemm_ms = device_time(prof, n, 0, "qgemm")[0]
+    ssm_ms = range_device_ms(prof, n, "ssm_step")
+    wq_ms = range_device_ms(prof, n, "shared_attn_params")
+    return {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "qgemm_ms_per_step": qgemm_ms,
+            "ssm_update_and_readout_ms_per_step": ssm_ms,
+            "wq_dequant_and_lora_ms_per_step": wq_ms,
+            "rest_ms_per_step": busy_ms - qgemm_ms - (ssm_ms or 0) - (wq_ms or 0),
+            "top_kernels_ms_per_step": top}
+
+
+def hybrid_draft_speculative(prompts, hargs):
+    """Greedy speculative decode of tinyllama-1.1b (full width) with a
+    zamba2-7b draft at full width and HYBRID_DRAFT_LAYERS layers, on the
+    contiguous store, over the hybrid traffic: tokens and every request's
+    retire-time cache rows bitwise plain decode's; after every engine step
+    each active slot's draft index equals the target's; qgemm launches held
+    to the target's forwards (155 each) and the draft's (its decode steps
+    and each admission's scan positions)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_model_quantized
+    cfg, params, _, _ = serve_setup()
+    dcfg = get_config(HYBRID_ARCH).replace(n_layers=HYBRID_DRAFT_LAYERS, quantize="serve")
+    gen = torch.Generator(device="cuda").manual_seed(hargs.seed)
+    dparams = init_model_quantized(dcfg, gen, serve.quant_predicate, device="cuda")
+    snap = snapshot_engine_cls()
+
+    class Lockstep(snap):
+        lockstep_checks = 0
+
+        def step(self):
+            super().step()
+            for slot in self.scheduler.active:
+                check(self.draft_store.slot_index(slot) == self.store.slot_index(slot),
+                      f"slot {slot}: the draft's index left the target's")
+                self.lockstep_checks += 1
+    plain = drive(cfg, params, prompts, hargs, engine_cls=snap, cache_backend="contiguous")
+    reqs, stats, launches, wall, _, engine, round_s = drive(
+        cfg, params, prompts, hargs, engine_cls=Lockstep, draft_params=dparams,
+        speculative=True, spec_k=SPEC_K, draft=dcfg, cache_backend="contiguous")
+    name = f"{cfg.name} with a {HYBRID_DRAFT_LAYERS}-layer {HYBRID_ARCH} draft"
+    check(engine.draft_store.kind == "recurrent", f"{name}: the draft store is not recurrent")
+    check([r.tokens for r in reqs] == [r.tokens for r in plain[0]],
+          f"{name}: speculative tokens differ from plain decode's")
+    for r, p in zip(reqs, plain[0]):
+        for leaf, t in engine.rows[r.id].items():
+            check(torch.equal(t, plain[5].rows[p.id][leaf]),
+                  f"{name}: request {r.id}'s retire-time {leaf} rows differ from plain's")
+    check(engine.lockstep_checks > 0, f"{name}: no lockstep check ran")
+    target_forwards = stats["decode_steps"] + stats["prefill_batches"]
+    draft_forwards = stats["draft_steps"] + scan_forwards(stats, "draft_prefill")
+    want = per_forward(cfg) * target_forwards + hybrid_per_forward(dcfg) * draft_forwards
+    check(launches["qgemm"] == want,
+          f"{name}: qgemm launched {launches['qgemm']} times, expected {want}")
+    snapshot_bytes = engine.draft_store.nbytes()
+    out = {"target": cfg.name, "draft": HYBRID_ARCH, "draft_layers": dcfg.n_layers,
+           "spec_k": SPEC_K, "tokens_and_rows_bitwise_plain": True,
+           "lockstep_checks": engine.lockstep_checks,
+           "spec_rounds": stats["spec_rounds"], "draft_steps": stats["draft_steps"],
+           "proposed_tokens": stats["proposed_tokens"],
+           "accepted_tokens": stats["accepted_tokens"],
+           "acceptance_rate": stats["acceptance_rate"],
+           "acceptance_within_budget": stats["accepted_tokens"] / max(engine.spec_budget, 1),
+           "accept_hist": stats["accept_hist"],
+           "sustained_tok_s": stats["sustained_tok_s"], "wall_s": wall,
+           "round_ms_median": 1e3 * float(np.median(round_s)),
+           "plain": {"sustained_tok_s": plain[1]["sustained_tok_s"], "wall_s": plain[3]},
+           "draft_store_bytes": snapshot_bytes,
+           "snapshot_bytes_per_round": (SPEC_K + 1) * snapshot_bytes,
+           "device_peak_bytes": stats["device_peak_bytes"],
+           "qgemm_per_forward": {"target": per_forward(cfg),
+                                 "draft": hybrid_per_forward(dcfg)},
+           "launches": launches}
+    del params, dparams, engine, plain
+    free_device()
+    return out, launches
+
+
+SENSITIVITY_FACTOR = 2.0       # card vs CPU over the run: at most this times the CPU's one-ulp spread
+SENSITIVITY_CAP = (0.15, 0.03)  # that spread's max and RMS over the logits' absolute max, at most
+PLANTED_FAULTS = ("dskip_dropped", "conv_tap_dropped")
+
+
+def rule_fractions(g, c):
+    """(max, RMS) of |g - c| over the absolute max of c, the CPU's, on the
+    host."""
+    g, c = g.float().cpu(), c.float().cpu()
+    d = (g - c).abs()
+    scale = float(c.abs().max())
+    return float(d.max()) / scale, float(d.pow(2).mean().sqrt()) / scale
+
+
+def within_fixed_rule(fractions):
+    return fractions[0] <= FIXED_RULE[0] and fractions[1] <= FIXED_RULE[1]
+
+
+def hybrid_cache_rows(cache, rows):
+    """A copy of rows ``rows`` of a hybrid decode cache (batch axis 0 of the
+    index, 1 of every other leaf)."""
+    def take(name, t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {n: take(n, u) for n, u in t.items()}
+        return (t[rows] if name == "index" else t[:, rows]).clone()
+    return {n: take(n, t) for n, t in cache.items()}
+
+
+@contextlib.contextmanager
+def hybrid_layer_taps(feed=None):
+    """Records every shared-block application and mamba layer that the
+    hybrid decode body (models/serve.py) calls, in call order: (kind, input
+    x, output x, new (conv, ssm) states or None). With ``feed`` (an earlier
+    recording) each call's input x is replaced by that call's recorded
+    input, on this call's device: every layer then runs on the recording's
+    input, whatever the layers before it gave."""
+    from repro_torch.models import model as M
+    mamba, shared, taps = M.mamba_layer, M.shared_block, []
+
+    def given(x):
+        return x if feed is None else feed[len(taps)][1].to(x.device)
+
+    def mamba_tap(lp, x, cfg, **kw):
+        x = given(x)
+        out, states = mamba(lp, x, cfg, **kw)
+        taps.append(("mamba", x, out, states))
+        return out, states
+
+    def shared_tap(hp, g, x, cfg, attend):
+        x = given(x)
+        out = shared(hp, g, x, cfg, attend)
+        taps.append(("shared", x, out, None))
+        return out
+    M.mamba_layer, M.shared_block = mamba_tap, shared_tap
+    try:
+        yield taps
+    finally:
+        M.mamba_layer, M.shared_block = mamba, shared
+
+
+def hybrid_layer_fractions(card, cpu):
+    """Each layer's fixed-rule fractions, card against CPU on the same
+    input: its output's change to the residual stream, and a mamba layer's
+    new conv and ssm states."""
+    out = []
+    for (kind, x, o, s), (_, xc, oc, sc) in zip(card, cpu):
+        row = {"kind": kind, "delta": rule_fractions(o - x, oc - xc)}
+        if s is not None:
+            row.update(conv=rule_fractions(s[0], sc[0]), ssm=rule_fractions(s[1], sc[1]))
+        out.append(row)
+    return out
+
+
+def layer_holds(row):
+    return all(within_fixed_rule(v) for k, v in row.items() if k != "kind")
+
+
+def planted_fault(params, fault):
+    """``params`` with one Mamba2 piece broken in every layer, a copy:
+    ``dskip_dropped`` drops the readout's D x skip term (Dskip 0),
+    ``conv_tap_dropped`` the conv's oldest tap (conv_w[0] 0)."""
+    import torch
+    hp = params["hybrid"]
+
+    def broken(part):
+        if part is None:
+            return None
+        m = dict(part["mamba"])
+        if fault == "dskip_dropped":
+            m["Dskip"] = torch.zeros_like(m["Dskip"])
+        else:
+            m["conv_w"] = m["conv_w"].clone()
+            m["conv_w"][..., 0, :] = 0
+        return dict(part, mamba=m)
+    return dict(params, hybrid=dict(hp, groups=broken(hp["groups"]), tail=broken(hp["tail"])))
+
+
+def check_reference_hybrid(n_layers, P=16, n_steps=3):
+    """zamba2-7b at full width and ``n_layers`` layers on the card against
+    the same model on the CPU (plain versions), same weights and inputs, in
+    the f32 compute dtype, at three scopes.
+
+    Each layer alone: one decode position from the CPU's post-admission
+    state, every shared-block application and mamba layer fed the CPU's
+    input to it (``hybrid_layer_taps``): its output's change to the
+    residual stream and a mamba layer's new conv and ssm states within
+    check_reference's fixed rule (FIXED_RULE) of the CPU's.
+
+    One decode body: the same position, the card's layers feeding each
+    other: the logits within the fixed rule (``hold_card_to_cpu``), before
+    the recurrence has carried a difference across positions.
+
+    The run: the masked-scan admission (prefill_recurrent) of 2 prompts of
+    P tokens, then ``n_steps`` decode steps fed the CPU's greedy tokens.
+    The bound is relative: at most SENSITIVITY_FACTOR times the CPU's own
+    spread when every embedding entry moves by one f32 ulp (two more rows
+    of the CPU's batch that read a nudged copy of the table; rows are
+    independent), with the same greedy token wherever the CPU's top-2
+    margin is clear. This model moves as far under that nudge as the card
+    moves from the CPU (12.7% max and 2.2% RMS of the logits' absolute
+    max at 13 layers and 16 positions): a one-ulp change flips int8
+    activation codes and the recurrence carries each flip into every later
+    position. The spread itself must stay within SENSITIVITY_CAP of the
+    scale, so a more chaotic config fails here rather than widening the
+    bound; whether the fixed rule held is reported.
+
+    Planted faults (PLANTED_FAULTS, ``planted_fault``: a Mamba2 piece
+    broken in the card's weights) must fail all three: every mamba layer
+    alone, the decode body and the run's relative bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import quant_predicate
+    from repro_torch.models import serve as SV
+    from repro_torch.models.model import init_model_quantized
+    cfg = get_config(HYBRID_ARCH).replace(quantize="serve", dtype="float32",
+                                          n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model_quantized(cfg, gen, quant_predicate, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, P), generator=torch.Generator().manual_seed(5))
+    V = cfg.vocab_padded
+
+    def run(p, toks, pick):
+        """The admission, then n_steps decode steps fed ``pick(step,
+        logits)``: every output's logits on the host, and a copy of the
+        post-admission cache."""
+        dev = toks.device
+        last = torch.full((toks.shape[0],), P - 1, dtype=torch.int32, device=dev)
+        row, cache = SV.prefill_recurrent(p, cfg, toks, last, P + n_steps + 1)
+        admitted = clone_tree(cache)
+        outs = [row]
+        for i in range(n_steps):
+            logits, cache = SV.decode(p, cfg, cache, pick(i, outs[-1]).to(dev))
+            outs.append(logits[:, -1])
+        return [o.float().cpu() for o in outs], admitted
+    cpu_params = _to_cpu(params)
+    embed = cpu_params["embed"]
+    both = dict(cpu_params, embed=torch.cat(
+        [embed, torch.nextafter(embed, torch.full_like(embed, float("inf")))]))
+    fed = []
+
+    def greedy_twice(i, logits):
+        t = logits[:2].argmax(-1).to(torch.int32)[:, None]
+        fed.append(t)
+        return torch.cat([t, t + V])
+    cpu_both, admitted = run(both, torch.cat([tokens, tokens + V]), greedy_twice)
+    state, tok = hybrid_cache_rows(admitted, [0, 1]), fed[0]
+
+    # one decode position from the CPU's post-admission state: the CPU's
+    # plain rows, and two rows that read the nudged table
+    with hybrid_layer_taps() as taps:
+        c_step = SV.decode(both, cfg, hybrid_cache_rows(admitted, [0, 1, 0, 1]),
+                           torch.cat([tok, tok + V]))[0][:, -1].float()
+    feed = [(k, x[:2], o[:2], s and tuple(t[:2] for t in s)) for k, x, o, s in taps]
+
+    def card_step(p, feed=None):
+        with hybrid_layer_taps(feed) as taps:
+            logits = SV.decode(p, cfg, tree_to(state, "cuda"), tok.cuda())[0]
+        return logits[:, -1].float().cpu(), hybrid_layer_fractions(taps, feed or [])
+
+    def worst(rows, kind):
+        picked = [v for r in rows if r["kind"] == kind for k, v in r.items() if k != "kind"]
+        return {"max": max(f[0] for f in picked), "rms": max(f[1] for f in picked)}
+    layers = card_step(params, feed)[1]
+    check(all(layer_holds(r) for r in layers),
+          f"card vs CPU, each layer on the same input: a layer outside the fixed rule "
+          f"{[r for r in layers if not layer_holds(r)][:2]}")
+    out = {"arch": HYBRID_ARCH, "n_layers": n_layers, "prompt_tokens": P,
+           "fixed_rule": list(FIXED_RULE), "sensitivity_factor": SENSITIVITY_FACTOR,
+           "sensitivity_cap": list(SENSITIVITY_CAP),
+           "layers_alone": {"layers": len(layers), "worst_mamba": worst(layers, "mamba"),
+                            "worst_shared": worst(layers, "shared")}}
+    g_step = card_step(params)[0]
+    out["decode_body"] = dict(hold_card_to_cpu("one decode body", g_step, c_step[:2]),
+                              cpu_one_ulp_embed_fractions=rule_fractions(c_step[2:],
+                                                                         c_step[:2]))
+
+    def relative(g, cn):
+        c, n = cn[:2], cn[2:]
+        got = {"max_abs_diff": float((g - c).abs().max()),
+               "rms_diff": float((g - c).pow(2).mean().sqrt())}
+        sens = {"max_abs_diff": float((n - c).abs().max()),
+                "rms_diff": float((n - c).pow(2).mean().sqrt())}
+        return got, sens, all(got[k] <= SENSITIVITY_FACTOR * sens[k] for k in got)
+    g_outs = run(params, tokens.cuda(), lambda i, logits: fed[i])[0]
+    names = ["prefill_recurrent"] + [f"decode{i}" for i in range(n_steps)]
+    for name, g, cn in zip(names, g_outs, cpu_both):
+        c = cn[:2]
+        check(bool(torch.isfinite(g).all()), f"non-finite {name} logits on the card")
+        got, sens, holds = relative(g, cn)
+        scale = float(c.abs().max())
+        check(sens["max_abs_diff"] <= SENSITIVITY_CAP[0] * scale
+              and sens["rms_diff"] <= SENSITIVITY_CAP[1] * scale,
+              f"{name}: the CPU's one-ulp spread {sens} exceeds {SENSITIVITY_CAP} of the "
+              f"logits' absolute max {scale}: too chaotic for a relative bound")
+        check(holds, f"card vs CPU {name} logits: {got} above {SENSITIVITY_FACTOR} x the "
+              f"CPU's one-ulp spread {sens}")
+        top2 = c.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > CLEAR_MARGIN
+        check(torch.equal(g.argmax(-1)[clear], c.argmax(-1)[clear]),
+              f"card and CPU pick different clear greedy tokens ({name})")
+        out[name] = {**got, "abs_max": scale, "clear_tokens_compared": int(clear.sum()),
+                     "cpu_one_ulp_embed_sensitivity": sens,
+                     "fixed_rule_holds": within_fixed_rule(rule_fractions(g, c))}
+
+    out["planted_faults"] = {}
+    for fault in PLANTED_FAULTS:
+        broken = planted_fault(params, fault)
+        rows = card_step(broken, feed)[1]
+        body = rule_fractions(card_step(broken)[0], c_step[:2])
+        run_holds = [relative(g, cn)[2] for g, cn in zip(
+            run(broken, tokens.cuda(), lambda i, logits: fed[i])[0], cpu_both)]
+        mamba_rows = [r for r in rows if r["kind"] == "mamba"]
+        flagged = sum(not layer_holds(r) for r in mamba_rows)
+        check(flagged == len(mamba_rows) and not within_fixed_rule(body)
+              and not any(run_holds),
+              f"planted fault {fault} passed a card-vs-CPU rule: {flagged} of "
+              f"{len(mamba_rows)} mamba layers flagged, decode body {body}, run "
+              f"outputs within the relative bound {run_holds}")
+        out["planted_faults"][fault] = {
+            "mamba_layers_flagged": flagged,
+            "least_layer_max_fraction": min(max(v[0] for k, v in r.items() if k != "kind")
+                                            for r in mamba_rows),
+            "decode_body_fractions": body,
+            "run_outputs_within_relative_bound": sum(run_holds)}
+        del broken
+    del params
+    free_device()
+    return out
+
+
+def check_hybrid():
+    """zamba2-7b at full width and depth (81 layers) behind the Engine on the
+    recurrent store, built by the streamed build: the three row-invariance
+    probes; the hybrid traffic (8 slots; 8 requests of 16 + 16 tokens, 2
+    steps apart: admission replays the decode body once per prompt
+    position, and 32-token prompts took the phase past 300 s) twice,
+    tokens equal and in the vocabulary, qgemm launches held to the
+    forwards (403 a position); requests 0 and 7 alone on a one-slot engine
+    (the batch's tokens); ``Engine.embed`` on a 32-token prompt (the
+    chunked SSD form); a decode step's profile; greedy
+    speculative decode of tinyllama-1.1b with a 13-layer zamba2 draft; the
+    card against the CPU at 13 layers. Returns the launches of the served
+    runs and the summary."""
+    import numpy as np
+    from repro_torch.serving.engine import Engine, EngineConfig
+    laps, lap = lap_clock()
+    (cfg, params, prompts, args), build = build_arch(HYBRID_ARCH, argv=HYBRID_ARGS)
+    check(hybrid_per_forward(cfg) == 403,
+          f"{HYBRID_ARCH}: {hybrid_per_forward(cfg)} qgemm launches a position")
+    lap("build")
+    probes = hybrid_row_probes(cfg)
+    lap("row_probes")
+    runs, launches = [], []
+    for _ in range(2):
+        run = drive(cfg, params, prompts, args, cache_backend="recurrent")
+        reqs, stats = run[0], run[1]
+        check(all(r.done and len(r.tokens) == args.gen for r in reqs),
+              f"{HYBRID_ARCH}: a request did not finish")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.tokens),
+              f"{HYBRID_ARCH}: token out of vocab")
+        check(stats["cache"]["backend"] == "recurrent", f"{HYBRID_ARCH}: not on the "
+              f"recurrent store")
+        check_hybrid_launches(f"{HYBRID_ARCH} recurrent", cfg, stats, run[2])
+        runs.append(run)
+        launches.append(run[2])
+    check([r.tokens for r in runs[0][0]] == [r.tokens for r in runs[1][0]],
+          f"{HYBRID_ARCH}: a second run of the same traffic gave other tokens")
+    served = served_summary(runs[0])
+    served.update(prefill_wait_s=runs[0][1]["prefill_wait_s"],
+                  admission_s_per_request=runs[0][1]["prefill_wait_s"] / len(prompts),
+                  scan_positions=scan_forwards(runs[0][1], "prefill"),
+                  cache_bytes=runs[0][1]["cache"]["bytes"],
+                  second_run_tok_s=runs[1][1]["sustained_tok_s"])
+    lap("serve_twice")
+    alone = check_batch_invariance([runs[0][0][i] for i in HYBRID_ALONE],
+                                   (cfg, params, prompts, args))
+    alone["requests_alone"] = list(HYBRID_ALONE)
+    lap("batch_invariance")
+    engine = Engine(cfg, params, EngineConfig(max_slots=1, max_seq_len=args.prompt_len
+                                              + args.gen), device=args.device)
+    embed_prompt = np.concatenate([prompts[0], prompts[1]])[:HYBRID_EMBED_TOKENS]
+    t0 = time.perf_counter()
+    emb = engine.embed(embed_prompt)
+    embed_s = time.perf_counter() - t0
+    engine.close()
+    check(emb["embedding"].shape == (cfg.d_model,) and emb["logits"].shape == (cfg.vocab,)
+          and np.isfinite(emb["embedding"]).all() and np.isfinite(emb["logits"]).all(),
+          f"{HYBRID_ARCH}: Engine.embed gave a bad row")
+    profile = profile_hybrid(cfg, params)
+    lap("embed_and_profile")
+    del params, runs, engine
+    free_device()
+    spec, spec_launches = hybrid_draft_speculative(prompts, args)
+    launches.append(spec_launches)
+    lap("speculative")
+    reference = check_reference_hybrid(HYBRID_REFERENCE_LAYERS)
+    lap("reference")
+    total = {k: sum(l[k] for l in launches) for k in launches[0]}
+    return total, {"seconds": laps, "arch": HYBRID_ARCH, "n_layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "build": build, "row_probes": probes,
+                   "serve": served, "batch_invariance": alone,
+                   "embed": {"seconds": embed_s, "prompt_tokens": len(embed_prompt),
+                             "argmax": int(np.argmax(emb["logits"]))},
+                   "decode_profile": profile, "speculative": spec,
+                   "reference": reference, "qgemm_per_forward": hybrid_per_forward(cfg),
+                   "launches": total}
 
 
 # ------------------------------------------------------ the GPTPU path
@@ -2655,10 +3217,21 @@ def check_ops(dev):
     return {k: c.launches for k, c in counters.items()}, out
 
 
-def _to_cpu(tree):
+def tree_to(tree, device):
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree.to("cpu")
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
+def _to_cpu(tree):
+    return tree_to(tree, "cpu")
+
+
+def clone_tree(tree):
+    """A copy of a (nested) cache dict that owns its storage; None stays."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
 
 
 def main() -> int:
@@ -2735,6 +3308,8 @@ def main() -> int:
         phase("moe", card=card, **moe)
         dense_launches, dense = check_dense_configs()
         phase("dense_configs", card=card, **dense)
+        hybrid_launches, hybrid = check_hybrid()
+        phase("hybrid", card=card, **hybrid)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2750,7 +3325,8 @@ def main() -> int:
                "prefix_cache": prefix["launches"], "sampling": sampling_launches,
                "speculative": spec_launches, "fleet": fleet_launches,
                "gptpu": gptpu["launches"], "ops": ops_launches,
-               "moe": moe_launches, "dense_configs": dense_launches}
+               "moe": moe_launches, "dense_configs": dense_launches,
+               "hybrid": hybrid_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape
 

@@ -14,14 +14,15 @@ ARCH_IDS: List[str] = [
     "qwen3_14b",
     "starcoder2_15b",
     "tinyllama_1_1b",
+    "zamba2_7b",
 ]
 
 
 def get_config(arch: str) -> ArchConfig:
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
-        # zamba2-7b, xlstm-125m, seamless-m4t-medium and qwen2-vl-2b: the
-        # recurrent families, encdec and vlm
+        # xlstm-125m, seamless-m4t-medium and qwen2-vl-2b: the ssm family,
+        # encdec and vlm
         raise ValueError(
             f"arch {arch!r} is not ported yet (ported: {ARCH_IDS}); the other "
             f"families are ROADMAP.md queue 1 item 11")

@@ -7,11 +7,16 @@ continuous-batching engine with the Tensorizer W8A8 path.
 
 ``--arch`` takes every ported config (repro_torch.configs.ARCH_IDS): the
 dense tinyllama-1.1b, qwen3-14b (qk_norm), starcoder2-15b (LayerNorm,
-GeLU) and granite-20b (MQA), and the MoE deepseek-moe-16b and
-moonshot-v1-16b-a3b.
+GeLU) and granite-20b (MQA), the MoE deepseek-moe-16b and
+moonshot-v1-16b-a3b, and the hybrid zamba2-7b (Mamba2 layers and a shared
+attention block), which serves on ``--cache-backend recurrent`` (what
+``auto`` picks for it) and can be the ``--draft-config`` of a dense or MoE
+target.
 
 ``--cache-backend contiguous`` leases per-slot rows sized to the sequence
-budget; ``paged`` leases blocks from a pool, decoded through the gather
+budget; ``recurrent`` per-slot state rows (the hybrid's conv and ssm states
+beside its shared attention's K/V), admitted by a masked replay of the
+decode body; ``paged`` leases blocks from a pool, decoded through the gather
 bridge, or block-natively with ``--paged-native`` (plain torch) and
 ``--paged-kernel`` (the paged-attention kernel). ``--prefill-chunk W``
 admits buckets wider than W by the chunked scan; ``--prefix-cache`` (paged)
@@ -101,8 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stagger-steps", type=int, default=0,
                     help="engine steps between request arrivals (0 = all at once)")
     ap.add_argument("--cache-backend", default="auto",
-                    choices=["auto", "contiguous", "paged"],
-                    help="SlotStore backend (auto: contiguous for dense archs)")
+                    choices=["auto", "contiguous", "paged", "recurrent"],
+                    help="SlotStore backend (auto: contiguous for dense/moe, "
+                         "recurrent for the hybrid)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged backend: tokens per KV block")
     ap.add_argument("--n-blocks", type=int, default=0,
@@ -335,6 +341,10 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
             get_config(arch)
         except ValueError as e:
             ap.error(str(e))
+    family = get_config(args.arch).family
+    if args.speculative and family not in ("dense", "moe"):
+        ap.error(f"--speculative needs a dense-family TARGET arch, got {args.arch} "
+                 f"(family={family}); recurrent models can be the draft, not the target")
     device = resolve_device(args.device)
 
     cfg, params = build_model(args.arch, args, device)

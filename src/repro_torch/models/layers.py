@@ -32,6 +32,21 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,
                        device=device) * (fan_in ** -0.5)
 
 
+def matmul_fixed_rows(x: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """x (..., K) @ w (K, N) in calls of exactly ``rows`` rows, the last
+    zero-padded. cuBLAS picks its kernel, and with it the order of a row's
+    sums, by the call's shape; one call shape keeps a row's bits whatever
+    the rows beside it."""
+    K = x.shape[-1]
+    flat = x.reshape(-1, K)
+    n = flat.shape[0]
+    pad = -n % rows
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, K))])
+    out = torch.cat([torch.matmul(flat[lo:lo + rows], w) for lo in range(0, n + pad, rows)])
+    return out[:n].reshape(*x.shape[:-1], w.shape[-1])
+
+
 def pdot(x: torch.Tensor, w: Union[torch.Tensor, tz.QTensor],
          cfg: ArchConfig) -> torch.Tensor:
     """Activation @ weight with the framework's precision policy.

@@ -76,13 +76,7 @@ def router_scores(router, x: torch.Tensor) -> torch.Tensor:
     """f32 scores (T, E) of tokens x (T, D): ``x.f32 @ router`` in calls of
     exactly ROUTER_ROWS rows, the last zero-padded (module doc)."""
     w = router.dequantize() if isinstance(router, tz.QTensor) else router
-    w = w.to(torch.float32)
-    xf = x.to(torch.float32)
-    T, m = xf.shape[0], ROUTER_ROWS
-    pad = -T % m
-    if pad:
-        xf = torch.cat([xf, xf.new_zeros((pad, xf.shape[1]))])
-    return torch.cat([torch.mm(xf[lo:lo + m], w) for lo in range(0, T + pad, m)])[:T]
+    return L.matmul_fixed_rows(x.to(torch.float32), w.to(torch.float32), ROUTER_ROWS)
 
 
 def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,15 +1,21 @@
 """Serving path: cache construction, fused, chunked and suffix
 prefill-with-cache, contiguous decode, block-native paged decode and the
 speculative verify window on both layouts — the port of
-``repro.models.serve`` for the dense and MoE families, float and int8 KV.
-MoE layers route with the reference's capacity mode on each path: the
-``active`` idle mask at decode, row-isolated at every prefill and verify.
+``repro.models.serve`` for the dense and MoE families, float and int8 KV —
+and the hybrid family's recurrent cache, decode and masked-scan admission
+(``prefill_recurrent``). MoE layers route with the reference's capacity
+mode on each path: the ``active`` idle mask at decode, row-isolated at
+every prefill and verify.
 
-Cache dicts (dense and moe families):
+Cache dicts:
   contiguous  {"k", "v": (L, B, S, KV, hd), "index": (B,)}
   paged       {"k", "v": (L, NB, bs, KV, hd), "index": (B,), "tables": (B, MB)}
 plus {"k_scale", "v_scale"} (the same shapes without hd, f32) with the int8
-KV cache, whose entries are int8.
+KV cache, whose entries are int8; and for the hybrid
+  recurrent   {"k", "v": (G, B, S, KV, hd) one per shared-block application,
+               "groups": {"conv": (G * attn_every, B, 3, C) in the compute
+               dtype, "ssm": (G * attn_every, B, H, P, N) f32},
+               "tail": the same for the tail layers, or None, "index": (B,)}
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import ssm as SSM
 
 
 def _kv_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -44,10 +51,34 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
     dtype (+ int8 scales), and the index: (B,) per slot with
     ``per_slot_index`` (the continuous-batching layout), else ()."""
     M.check_family(cfg)
-    cache = A.init_cache(cfg, cfg.n_layers, batch, seq, _kv_dtype(cfg), device=device)
+    if cfg.family == "hybrid":
+        cache = _init_hybrid_cache(cfg, batch, seq, device)
+    else:
+        cache = A.init_cache(cfg, cfg.n_layers, batch, seq, _kv_dtype(cfg), device=device)
+        _with_scales(cfg, cache, (cfg.n_layers, batch, seq, cfg.n_kv), device)
     if per_slot_index:
         cache["index"] = torch.zeros((batch,), dtype=torch.int32, device=device)
-    return _with_scales(cfg, cache, (cfg.n_layers, batch, seq, cfg.n_kv), device)
+    return cache
+
+
+def _init_hybrid_cache(cfg: ArchConfig, batch: int, seq: int, device) -> Dict:
+    """The hybrid's cache: K/V rows per shared-block application in the
+    compute dtype (the int8 KV cache is a dense-family layout, as in the
+    reference), and each mamba layer's conv state (compute dtype) and ssm
+    state (f32), all zero."""
+    G, rem = M.hybrid_layout(cfg)
+    dt = L.cdtype(cfg)
+    H, Pd, N = SSM.n_ssm_heads(cfg), cfg.ssm_headdim, cfg.ssm_state
+
+    def states(n):
+        return {"conv": torch.zeros((n, batch, SSM.CONV_W - 1, SSM.conv_channels(cfg)),
+                                    dtype=dt, device=device),
+                "ssm": torch.zeros((n, batch, H, Pd, N), dtype=torch.float32,
+                                   device=device)}
+    cache = A.init_cache(cfg, G, batch, seq, dt, device=device)
+    cache["groups"] = states(G * cfg.attn_every)
+    cache["tail"] = states(rem) if rem else None
+    return cache
 
 
 def init_paged_cache(cfg: ArchConfig, n_slots: int, n_blocks: int,
@@ -57,6 +88,8 @@ def init_paged_cache(cfg: ArchConfig, n_slots: int, n_blocks: int,
     tables (B, MB); per-slot index (B,). Block 0 is the reserved null block
     (serving/store.py)."""
     M.check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"paged KV cache is a dense-family layout, not {cfg.family}")
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv, cfg.hd)
     cache = {
         "k": torch.zeros(shape, dtype=_kv_dtype(cfg), device=device),
@@ -189,6 +222,75 @@ def _decode_layers(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Ten
     return M._head(params, cfg, L.apply_norm(params["final_ln"], x, cfg))
 
 
+def _hybrid_decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
+                   keep: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """The hybrid's one-token decode body: each shared-block application
+    writes the new token's K/V at its row's index, in place, and attends
+    its rows; each mamba layer's conv and ssm states go into NEW state
+    tensors, so the input cache's states stay as they were and a re-issued
+    step computes the same result. ``keep`` (B,) bool (the masked admission
+    scan) freezes the rows where it is False: their K/V writes are dropped
+    (the attention's index is pushed past the rows) and their states and
+    index carried over. Returns ``(logits, cache)``: the same K/V tensors,
+    new state tensors and a new index."""
+    hp = params["hybrid"]
+    index = cache["index"]
+    G, rem = M.hybrid_layout(cfg)
+    att_index = index if keep is None else torch.where(
+        keep, index, torch.full_like(index, cache["k"].shape[2]))
+    parts = [part for part in ("groups", "tail") if cache.get(part) is not None]
+    states = {part: {n: torch.empty_like(t) for n, t in cache[part].items()}
+              for part in parts}
+
+    def mamba(lp, x, part, i):
+        old = cache[part]
+        x, new = M.mamba_layer(lp, x, cfg, conv_state=old["conv"][i],
+                               ssm_state=old["ssm"][i], decode=True)
+        for name, t in zip(("conv", "ssm"), new):
+            if keep is not None:
+                t = torch.where(keep.reshape((-1,) + (1,) * (t.ndim - 1)), t, old[name][i])
+            states[part][name][i].copy_(t)
+        return x
+
+    x = M.embed_tokens(params, cfg, tokens)
+    for g in range(G):
+        x = M.shared_block(hp, g, x, cfg, lambda ap, h, g=g: A.decode_attention(
+            ap, h, cache["k"][g], cache["v"][g], att_index, cfg))
+        for j in range(cfg.attn_every):
+            x = mamba(M.layer_params(hp["groups"], (g, j)), x, "groups",
+                      g * cfg.attn_every + j)
+    for j in range(rem):
+        x = mamba(M.layer_params(hp["tail"], j), x, "tail", j)
+    new_index = index + 1 if keep is None else torch.where(keep, index + 1, index)
+    return M._logits(params, cfg, x), dict(cache, index=new_index, **states)
+
+
+def prefill_recurrent(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+                      last_index: torch.Tensor, max_seq_len: int
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """Admission for the recurrent (hybrid) family: the right-padded prompt
+    bucket (B, Sb) replayed through the decode body one position at a time
+    over a fresh B-row cache of ``max_seq_len`` positions. Rows whose prompt
+    ended (t > last_index[i]) are frozen (:func:`_hybrid_decode`'s ``keep``),
+    so pad tokens never touch them. Returns ``(row, cache)``: each row's
+    logits at its last prompt position (B, V_pad) f32 and its post-prompt
+    state, ready to copy into leased slot rows.
+
+    Each step is the math of a B-row decode step, and every op of the body
+    keeps a row's bits whatever the row count (models/ssm.py), so the
+    states and first tokens are bitwise a replay of each prompt alone
+    through the one-row decode step."""
+    M.check_family(cfg)
+    B, Sb = tokens.shape
+    cache = init_cache(cfg, B, max_seq_len, per_slot_index=True, device=tokens.device)
+    row = torch.zeros((B, cfg.vocab_padded), dtype=torch.float32, device=tokens.device)
+    for t in range(Sb):
+        logits, cache = _hybrid_decode(params, cfg, cache, tokens[:, t:t + 1],
+                                       keep=t <= last_index)
+        row = torch.where((t == last_index)[:, None], logits[:, -1].to(torch.float32), row)
+    return row, cache
+
+
 def decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
            active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode against contiguous rows with a per-slot index.
@@ -197,8 +299,11 @@ def decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
     row's index, in place, and attends positions up to it. Returns
     ``(logits, cache)``: the same leaf tensors and a NEW index tensor
     ``index + 1`` (the input index is never modified, so a re-issued step
-    sees the same positions)."""
+    sees the same positions). The hybrid family decodes its recurrent
+    cache (:func:`_hybrid_decode`: new state tensors, K/V in place)."""
     M.check_family(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, cache, tokens)
     index = cache["index"]
 
     def attend(lp, h, i, scales):

@@ -50,6 +50,18 @@ def make_prefill_with_cache_step(cfg: ArchConfig,
     return prefill_step
 
 
+def make_recurrent_prefill_step(cfg: ArchConfig, max_seq_len: int) -> Callable:
+    """Admission step of the recurrent (hybrid) family: the fused step's
+    contract, ``(first_tokens (B,), cache)`` with the post-prompt state rows
+    of a ``max_seq_len`` cache, by the masked replay of the decode body over
+    the bucket (models/serve.py ``prefill_recurrent``)."""
+    def prefill_step(params: Dict, tokens: torch.Tensor, last_index: torch.Tensor,
+                     sampling: Optional[Dict] = None):
+        row, cache = SV.prefill_recurrent(params, cfg, tokens, last_index, max_seq_len)
+        return _emit(cfg, row, cache, sampling, last_index + 1)
+    return prefill_step
+
+
 def make_chunked_prefill_step(cfg: ArchConfig, chunk: int,
                               decode_rows: Optional[DecodeRows] = None) -> Callable:
     """Chunked admission step (long prompts): the fused step's contract,
@@ -135,7 +147,8 @@ def make_paged_verify_step(cfg: ArchConfig, window: int) -> Callable:
 def make_embed_step(cfg: ArchConfig,
                     decode_rows: Optional[DecodeRows] = None) -> Callable:
     """Non-generative forward (embeddings, classification): the fused
-    prefill's bucketed forward (its ``decode_rows`` too), returning each
+    prefill's bucketed forward (its ``decode_rows`` too; the hybrid's
+    forward runs its mamba layers in the chunked SSD form), returning each
     row's last-position final-norm hidden state and its last-position
     logits row, both f32; no cache."""
     def embed_step(params: Dict, tokens: torch.Tensor, last_index: torch.Tensor):

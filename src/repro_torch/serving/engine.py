@@ -1,11 +1,12 @@
 """Continuous-batching inference engine over the OPQ runtime — the port of
 ``repro.serving.engine``'s single-host engine for a dense or MoE model,
-float or int8 KV, through every SlotStore route of the reference (contiguous rows;
+float or int8 KV, or a hybrid (zamba2) model on the recurrent state store,
+through every SlotStore route of the reference (contiguous rows;
 the paged pool through the gather bridge, block-natively in plain torch, or
 block-natively through the paged-attention kernel), with chunked prefill
 for long prompts, the shared-prefix radix cache, per-request sampling,
-stop sequences and logprobs, greedy speculative decode with a dense or MoE
-draft, and the non-generative ``embed`` forward.
+stop sequences and logprobs, greedy speculative decode with a dense, MoE
+or hybrid draft, and the non-generative ``embed`` forward.
 
 Requests enter a bounded FIFO (admission control); a slot scheduler joins
 them into a fixed-width in-flight decode batch and retires them as they
@@ -13,7 +14,8 @@ finish, with no full-batch barrier. Admission is one bucketed prefill
 dispatch per bucket batch (first token + per-layer K/V in cache layout) and
 one batched write into the leased slots: the fused single-shot step, the
 chunked scan for buckets wider than ``prefill_chunk``, or, for prefix-cache
-hits, the suffix scan over the chunks the cached prefix does not cover.
+hits, the suffix scan over the chunks the cached prefix does not cover; for
+the hybrid, the masked replay of its decode body over the bucket.
 Every device step is an OPQ instruction, so buffer affinity and backup
 re-issue apply to serving traffic; the per-flag instruction counts are the
 dispatch audit trail.
@@ -58,7 +60,7 @@ from repro_torch.serving.sampling import (
     GREEDY, TOP_LOGPROBS, SamplingParams, sampling_to_wire, stack_params, stop_match,
 )
 from repro_torch.serving.scheduler import Scheduler, bucket_for, default_buckets
-from repro_torch.serving.store import SlotStore, make_store
+from repro_torch.serving.store import RECURRENT_FAMILIES, SlotStore, make_store
 
 
 class RequestState(enum.Enum):
@@ -124,10 +126,10 @@ class Request:
 class EngineConfig:
     """Per-engine serving knobs, the JAX package's fields; see
     ``repro.serving.engine.EngineConfig`` for each field's meaning. The port
-    serves every field for a dense or MoE target; ``cache_backend=
-    "recurrent"`` and a target or draft of another family raise a
-    ValueError naming ROADMAP queue 1 item 11, which ports those
-    families."""
+    serves every field for a dense or MoE target, and a hybrid target on
+    ``cache_backend="recurrent"`` (what "auto" picks for it) with the
+    reference's refusals; a target or draft of the ssm family (xlstm)
+    raises a ValueError naming ROADMAP queue 1 item 11, which ports it."""
 
     max_slots: int = 4
     max_queue: int = 64
@@ -150,6 +152,7 @@ class EngineConfig:
 def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
     """The reference's construction checks, and the families still to port."""
     check_family(cfg)
+    recurrent = cfg.family in RECURRENT_FAMILIES
     if cfg.input_mode != "tokens":
         raise ValueError(f"the port serves token-input archs, got input_mode="
                          f"{cfg.input_mode} (ROADMAP queue 1 item 11)")
@@ -159,6 +162,11 @@ def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
                              "EngineConfig.draft and pass Engine(..., draft_params=...)")
         if ecfg.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {ecfg.spec_k}")
+        if recurrent:
+            raise ValueError(
+                f"speculative decode verifies through the K/V-window path, so the "
+                f"TARGET must be a dense-family arch, got {cfg.family} (a recurrent "
+                f"model can be the draft, not the target)")
         if ecfg.paged_kernel:
             raise ValueError(
                 "speculative decode does not route through the paged-attention "
@@ -183,6 +191,9 @@ def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
     if ecfg.prefix_cache and ecfg.cache_backend != "paged":
         raise ValueError(f"prefix_cache (shared-prefix radix cache) requires "
                          f"cache_backend='paged', got {ecfg.cache_backend!r}")
+    if ecfg.prefill_chunk and recurrent:
+        raise ValueError(f"prefill_chunk applies to the dense-family score-matrix "
+                         f"prefill, not the recurrent scan ({cfg.family})")
 
 
 def _buckets(ecfg: EngineConfig) -> Tuple[Tuple[int, ...], frozenset]:
@@ -262,7 +273,9 @@ class Engine:
             self.ecfg.max_seq_len,
             self.ecfg.block_size if self.ecfg.paged_kernel and cfg.kv_cache_dtype != "int8"
             else None)
-        self._prefill = ST.make_prefill_with_cache_step(cfg, rows)
+        self._prefill = (ST.make_recurrent_prefill_step(cfg, self.ecfg.max_seq_len)
+                         if self.store.kind == "recurrent"
+                         else ST.make_prefill_with_cache_step(cfg, rows))
         chunk = self.ecfg.prefill_chunk
         self._prefill_chunked = (ST.make_chunked_prefill_step(cfg, chunk, rows)
                                  if chunk else None)
@@ -289,10 +302,14 @@ class Engine:
             dcfg = self.ecfg.draft
             self.draft_store = make_store(dcfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
                                           device=self.device)
-            # the draft's store is contiguous: its prefill rows keep the bits
-            # of its own decode steps, as the target's do
-            self._draft_prefill = ST.make_prefill_with_cache_step(
-                dcfg, DecodeRows(self.ecfg.max_seq_len))
+            # the draft's store is contiguous (its prefill rows keep the bits
+            # of its own decode steps, as the target's do), or recurrent for a
+            # hybrid draft, rolled back by per-slot snapshots
+            self._draft_recurrent = self.draft_store.kind == "recurrent"
+            self._draft_prefill = (
+                ST.make_recurrent_prefill_step(dcfg, self.ecfg.max_seq_len)
+                if self._draft_recurrent
+                else ST.make_prefill_with_cache_step(dcfg, DecodeRows(self.ecfg.max_seq_len)))
             self._draft_decode = ST.make_decode_step(dcfg)
             self._draft_params_buf = Buffer(draft_params, name="draft-params")
         self._req_ids = itertools.count()
@@ -549,7 +566,9 @@ class Engine:
         eos, length and stop sequences landing mid-window. Rejected window
         positions are scrubbed from BOTH caches before any retire: later
         verify horizons reach them, and the retire-time rows must equal plain
-        decode's."""
+        decode's. A recurrent draft has no positions to scrub: each slot
+        adopts the draft state snapshot taken after its last accepted
+        token."""
         k = self.ecfg.spec_k
         W = k + 1
         n = self.ecfg.max_slots
@@ -558,6 +577,10 @@ class Engine:
         # window column 0: each slot's last emitted token; 1..k: proposals
         window = np.zeros((n, W), np.int32)
         window[:, 0] = toks[:, 0]
+        # a recurrent draft's rollback selects among snapshots: the state
+        # before the round, then after each draft step (the last is the live
+        # cache, which nothing writes before the rollback)
+        snapshots = [self.draft_store.snapshot()] if self._draft_recurrent else None
         cur = toks
         for i in range(W):
             nxt, dcache = self._dispatch(
@@ -566,6 +589,9 @@ class Engine:
                 Buffer(cur, name="draft-tokens"), Buffer(None), active_buf,
                 flags="draft_decode")
             self.draft_store.swap(dcache)
+            if snapshots is not None:
+                snapshots.append(self.draft_store.snapshot() if i < W - 1
+                                 else self.draft_store.cache)
             self.metrics.draft_steps += 1
             nxt_np = nxt.cpu().numpy().astype(np.int32)
             if i < k:
@@ -585,6 +611,7 @@ class Engine:
         slot_ids = np.full((n,), n, np.int64)              # pad: dropped
         new_index = np.zeros((n,), np.int64)
         scrub = np.full((n, k), self.ecfg.max_seq_len, np.int64)
+        sel = np.zeros((n,), np.int64)                     # recurrent draft
         produced = 0
         to_retire = []
         for slot, req in active:
@@ -615,13 +642,19 @@ class Engine:
             self.metrics.accept_hist[emit] = self.metrics.accept_hist.get(emit, 0) + 1
             slot_ids[slot] = slot
             new_index[slot] = p + emit
+            sel[slot] = emit
             scrub[slot, :W - emit] = p + emit + np.arange(W - emit)
             if self._finished(req):
                 to_retire.append(slot)
-        # the draft wrote K/V at exactly the target's window positions (feed
-        # i writes position p + i), so one rollback plan serves both stores
         self.store.rollback(slot_ids, new_index, scrub)
-        self.draft_store.rollback(slot_ids, new_index, scrub)
+        if self._draft_recurrent:
+            # recurrent state has no positions to scrub: each slot adopts the
+            # snapshot taken right after its last accepted token
+            self.draft_store.adopt_selected(snapshots, sel)
+        else:
+            # the draft wrote K/V at exactly the target's window positions
+            # (feed i writes position p + i), so one rollback plan serves both
+            self.draft_store.rollback(slot_ids, new_index, scrub)
         for slot in to_retire:
             self._retire(slot)
         self.metrics.observe_tokens(produced)

@@ -1,5 +1,5 @@
 """SlotStore: the serving cache behind one protocol — the port of
-``repro.serving.store`` for the dense and moe families.
+``repro.serving.store`` for the dense, moe and hybrid families.
 
 The engine decodes a fixed ``n_slots``-row batch; each row ("slot") is
 leased to one in-flight request. Everything the engine knows about the
@@ -24,6 +24,11 @@ Backends
                      which makes it bit-identical to the contiguous store;
                      NATIVE mode hands the pool itself to the block-native
                      decode step (``decode_view_bytes: 0``).
+  RecurrentStateStore per-slot recurrent state rows (the hybrid's mamba
+                     conv and ssm states beside its shared attention's K/V
+                     rows), admitted by whole rows from the masked-scan
+                     prefill; a recurrent speculative draft rolls back by
+                     adopting per-slot state snapshots (``adopt_selected``).
 
 Shared-prefix radix cache (paged, ``prefix_cache=True``): every FULL block
 of an admitted prompt enters a trie keyed on chained token-id block hashes;
@@ -46,9 +51,11 @@ travel as their raw 16-bit words (numpy has no bfloat16) under the
 reference's layout tag, so the checksum runs over the reference's bytes.
 
 Leaf convention: ``index`` (B,) carries the slot on axis 0, ``tables``
-(B, MB) too; every other leaf on axis 1 (L, B, ...). ``pristine_value`` is
-the one definition of each leaf's empty fill. The stores write their
-tensors in place where the JAX package donates them.
+(B, MB) too; every other leaf on axis 1 (L, B, ...), in nested dicts for
+the recurrent cache (``groups``/``tail`` hold ``conv`` and ``ssm``; an
+absent ``tail`` is None). ``pristine_value`` is the one definition of each
+leaf's empty fill, by leaf name. The stores write their tensors in place
+where the JAX package donates them.
 """
 
 from __future__ import annotations
@@ -67,18 +74,61 @@ from repro_torch.models import serve as SV
 from repro_torch.models.model import check_family
 
 _META = ("index", "tables")
+DENSE_FAMILIES = ("dense", "moe")
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+
+# the xlstm mLSTM stabilizer's "no history" sentinel (the reference's
+# models/xlstm.py M_INIT)
+M_INIT = -60.0
+
+# non-zero pristine fills, by leaf name (everything else resets to 0): the
+# reference's table, so a reset row equals a freshly allocated one
+_PRISTINE = {
+    "mlstm_m": M_INIT,      # xlstm stabilizer "no history" sentinel
+    "slstm_n": 1e-6,        # sLSTM normalizer floor
+    "slstm_m": -1e30,       # sLSTM stabilizer init
+}
 
 
 def pristine_value(name: str) -> float:
     """A cache leaf's empty-state fill value, shared by every reset, pad
     scrub and block scrub (int8-KV dequant scales park at 1e-12 so a
-    pristine entry dequantizes to exactly 0; the recurrent families'
-    non-zero fills come with those families)."""
-    return 1e-12 if name.endswith("_scale") else 0.0
+    pristine entry dequantizes to exactly 0; the xlstm states' sentinels
+    come from ``_PRISTINE``)."""
+    if name.endswith("_scale"):
+        return 1e-12
+    return _PRISTINE.get(name, 0.0)
 
 
 def _kv_leaves(cache: Dict) -> Dict[str, torch.Tensor]:
     return {n: t for n, t in cache.items() if n not in _META}
+
+
+def _leaves(cache: Dict, path=()):
+    """``(path, tensor)`` of every slot-axis-1 leaf of a (nested) cache dict:
+    index and tables, and an absent (None) part, skipped. The leaf's name
+    (``path[-1]``) picks its pristine fill; names repeat under two parents
+    (``groups/conv`` and ``tail/conv``)."""
+    for name, t in cache.items():
+        if t is None or (not path and name in _META):
+            continue
+        if isinstance(t, dict):
+            yield from _leaves(t, path + (name,))
+        else:
+            yield path + (name,), t
+
+
+def _at(tree: Dict, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _clone(tree):
+    """A copy of a (nested) cache dict that owns its storage."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
 
 
 # a shipped leaf's numpy dtype, by the dtype its layout tag names: numpy has
@@ -162,8 +212,8 @@ class SlotStore(abc.ABC):
         """Retire a request: scrub the slot's row to pristine so nothing
         leaks into its next tenant, and park its index at 0."""
         assert 0 <= slot < self.n_slots
-        for name, leaf in _kv_leaves(self.cache).items():
-            leaf[:, slot] = pristine_value(name)
+        for path, leaf in _leaves(self.cache):
+            leaf[:, slot] = pristine_value(path[-1])
         self.cache = _set_entries(self.cache, "index", slot, 0)
 
     # ---------------------------------------------------------- decode bridge
@@ -219,7 +269,9 @@ class SlotStore(abc.ABC):
     def nbytes(self) -> int:
         """Resident bytes of the cache (every leaf). The paged bridge's
         transient decode view is not in here: ``decode_view_bytes``."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        leaves = [t for _, t in _leaves(self.cache)]
+        leaves += [t for n, t in self.cache.items() if n in _META]
+        return sum(t.numel() * t.element_size() for t in leaves)
 
     def memory_stats(self) -> Dict:
         b = self.nbytes()
@@ -235,6 +287,9 @@ class ContiguousKVStore(SlotStore):
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_seq_len: int, device=None):
         check_family(cfg)
+        if cfg.family not in DENSE_FAMILIES:
+            raise ValueError(f"ContiguousKVStore supports dense-family caches, not "
+                             f"{cfg.family}")
         super().__init__(cfg, n_slots, max_seq_len, device)
 
     def alloc(self) -> Dict:
@@ -885,15 +940,75 @@ class PagedKVStore(SlotStore):
         return out
 
 
+class RecurrentStateStore(SlotStore):
+    """Per-slot recurrent state rows: the hybrid's mamba conv and ssm states
+    and its shared attention's K/V rows, every leaf with the slot on axis 1
+    (``_leaves``), so reset is the shared row scrub. Admission copies whole
+    rows from the masked-scan prefill (models/serve.py
+    ``prefill_recurrent``). There is no per-position rollback: a recurrent
+    speculative draft keeps state snapshots and adopts one per slot
+    (``snapshot``, ``adopt_selected``)."""
+
+    kind = "recurrent"
+
+    def __init__(self, cfg: ArchConfig, n_slots: int, max_seq_len: int, device=None):
+        if cfg.family not in RECURRENT_FAMILIES:
+            raise ValueError(f"RecurrentStateStore supports ssm/hybrid state caches, "
+                             f"not {cfg.family}")
+        super().__init__(cfg, n_slots, max_seq_len, device)
+
+    def alloc(self) -> Dict:
+        return SV.init_cache(self.cfg, self.n_slots, self.max_seq_len,
+                             per_slot_index=True, device=self.device)
+
+    def write_slots(self, slots, states: Dict, n_valid) -> None:
+        """Copy whole state rows of one admission bucket's prefill cache
+        (leaves (nl, B, ...)) into rows ``slots`` and set each row's index
+        to its prompt length, in place."""
+        slots_t = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        n_valid_t = torch.as_tensor(np.asarray(n_valid, np.int32), device=self.device)
+        for path, leaf in _leaves(self.cache):
+            leaf[:, slots_t] = _at(states, path).to(leaf.dtype)
+        self.cache = _set_entries(self.cache, "index", slots_t, n_valid_t)
+
+    def snapshot(self) -> Dict:
+        """The cache as it is now, in storage of its own: decode steps write
+        the live cache's K/V rows in place, so a snapshot that shared them
+        would change with it."""
+        return _clone(self.cache)
+
+    def adopt_selected(self, snapshots: Sequence[Dict], sel) -> None:
+        """Speculative rollback of a recurrent DRAFT: state has no positions
+        to scrub, so the engine keeps a snapshot per draft step of the round
+        (snapshot 0 before the first) and slot b adopts snapshot ``sel[b]``
+        (a host array), the one taken right after it consumed its last
+        accepted token; the snapshot's index already holds the
+        post-acceptance position. Rows are copied into the live cache in
+        place; a snapshot that IS the live cache needs no copy."""
+        sel = np.asarray(sel, np.int64)
+        live = self.cache
+        index = live["index"].clone()
+        for m in np.unique(sel):
+            snap = snapshots[int(m)]
+            if snap is live:
+                continue
+            rows = torch.as_tensor(np.flatnonzero(sel == m), device=self.device)
+            for path, leaf in _leaves(live):
+                leaf[:, rows] = _at(snap, path)[:, rows]
+            index[rows] = snap["index"][rows]
+        self.cache = dict(live, index=index)
+
+
 def make_store(cfg: ArchConfig, n_slots: int, max_seq_len: int,
                backend: str = "auto", *, block_size: int = 16,
                n_blocks: Optional[int] = None, native: bool = False,
                prefix_cache: bool = False, device=None) -> SlotStore:
     """Build the SlotStore backend for a config. ``backend="auto"`` picks
-    contiguous for the dense and moe families (recurrent for ssm/hybrid,
-    which are not ported). ``native`` and ``prefix_cache`` are paged-only."""
+    contiguous for the dense and moe families and recurrent for ssm/hybrid
+    (the ssm family is not ported: its cache raises). ``native`` and
+    ``prefix_cache`` are paged-only."""
     if backend == "auto":
-        backend = "recurrent" if cfg.family in ("ssm", "hybrid") else "contiguous"
+        backend = "recurrent" if cfg.family in RECURRENT_FAMILIES else "contiguous"
     if native and backend != "paged":
         raise ValueError(f"native (block-native decode) requires the paged backend, "
                          f"got {backend!r}")
@@ -907,7 +1022,6 @@ def make_store(cfg: ArchConfig, n_slots: int, max_seq_len: int,
                             n_blocks=n_blocks, native=native,
                             prefix_cache=prefix_cache, device=device)
     if backend == "recurrent":
-        raise ValueError("the recurrent state store (ssm/hybrid families) is not "
-                         "ported (ROADMAP queue 1 item 11)")
+        return RecurrentStateStore(cfg, n_slots, max_seq_len, device=device)
     raise ValueError(f"unknown cache backend {backend!r} "
                      f"(expected auto | contiguous | paged | recurrent)")

@@ -18,13 +18,16 @@ from repro_torch.core.tensorizer import QTensor
 def params_from_numpy(tree, device=None):
     """Nested dicts of numpy arrays (and q/scale pairs) -> the port's params:
     the same tree with torch tensors and port ``QTensor``s on ``device``
-    (``resolve_device``: the card unless the caller names the CPU)."""
+    (``resolve_device``: the card unless the caller names the CPU). A
+    ``None`` leaf (the hybrid family's absent ``tail``) stays ``None``."""
     return _convert(tree, resolve_device(device))
 
 
 def _convert(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
     if hasattr(tree, "q") and hasattr(tree, "scale"):
         return QTensor(_convert(tree.q, device), _convert(tree.scale, device))
     if isinstance(tree, (np.ndarray, np.generic)):

@@ -3,9 +3,10 @@ MoE family (moonshot-v1-16b-a3b, deepseek-moe-16b) and the dense family's
 other configs (qwen3-14b: qk_norm; starcoder2-15b: LayerNorm and GeLU;
 granite-20b: MQA), at their smoke sizes.
 
-  * configs — every field equal to the reference's; the four configs still
-    to port (zamba2-7b, xlstm-125m, seamless-m4t-medium, qwen2-vl-2b) raise,
-    naming ROADMAP item 11, in the registry, the Engine and the CLI;
+  * configs — every field equal to the reference's (zamba2-7b's too); the
+    three configs still to port (xlstm-125m, seamless-m4t-medium,
+    qwen2-vl-2b) raise, naming ROADMAP item 11, in the registry, the Engine
+    and the CLI;
   * layer pieces — ``rms_head_norm``, LayerNorm, GeLU and the GeLU MLP;
   * the model — the fused prefill-with-cache (logits and K/V) on each new
     arch, with W8A8 weights carried from the reference by
@@ -67,7 +68,7 @@ from repro_torch.testing.params import params_from_numpy
 
 NEW_ARCHS = ["moonshot-v1-16b-a3b", "deepseek-moe-16b", "qwen3-14b", "starcoder2-15b",
              "granite-20b"]
-UNPORTED = ["zamba2-7b", "xlstm-125m", "seamless-m4t-medium", "qwen2-vl-2b"]
+UNPORTED = ["xlstm-125m", "seamless-m4t-medium", "qwen2-vl-2b"]
 DTYPES = ["float32", "bfloat16"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 TOKENS = (3, 16)
@@ -159,7 +160,7 @@ def _within_one_ulp(got, ref):
 
 # ---------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + ["tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["tinyllama-1.1b", "zamba2-7b"])
 def test_config_fields_equal_the_references(arch):
     ref = dataclasses.asdict(get_config(arch))
     got = dataclasses.asdict(tget_config(arch))
@@ -297,7 +298,7 @@ def test_params_from_numpy_carries_a_moe_tree(reference):
     assert len(req.tokens) == 3
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + ["tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["tinyllama-1.1b", "zamba2-7b"])
 def test_quant_predicate_agrees_with_the_references(arch):
     """The port's serve predicate against the reference's on every leaf
     path of the arch's tree, and on the reference's skip set."""

@@ -64,7 +64,7 @@ def test_configs_match_reference():
     assert (dataclasses.asdict(tget_config("qwen3-14b"))
             == dataclasses.asdict(get_config("qwen3-14b")))
     with pytest.raises(ValueError, match="ROADMAP"):
-        tget_config("zamba2-7b")
+        tget_config("xlstm-125m")
 
 
 @pytest.mark.parametrize("shape,K,N", [((2, 5), 64, 96), ((1, 1), 128, 256),

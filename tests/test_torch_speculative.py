@@ -40,6 +40,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import tensorizer as tz  # noqa: E402
 from repro_torch.launch.serve import quant_predicate  # noqa: E402
 from repro_torch.models import init_model  # noqa: E402
+from repro_torch.models.model import init_model_quantized  # noqa: E402
 from repro_torch.serving import (Engine, EngineConfig, PagedKVStore,  # noqa: E402
                                  SamplingParams, pristine_value)
 
@@ -468,12 +469,18 @@ def test_spec_config_validation(params):
         build(speculative=True, draft=CFG.replace(vocab=CFG.vocab * 2))
     with pytest.raises(ValueError, match="paged_kernel|kernel"):
         build(cache_backend="paged", paged_native=True, paged_kernel=True, **_spec_kw())
-    # the families still to port name the ROADMAP item that ports them
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(ValueError, match="item 11"):
-            build(cfg=CFG.replace(family=family), **_spec_kw())
-        with pytest.raises(ValueError, match="item 11"):
-            build(**_spec_kw(CFG.replace(family=family)))
+    # the ssm family (xlstm) still names the ROADMAP item that ports it; a
+    # hybrid target is the reference's refusal, a hybrid draft is served
+    with pytest.raises(ValueError, match="item 11"):
+        build(cfg=CFG.replace(family="ssm"), **_spec_kw())
+    with pytest.raises(ValueError, match="item 11"):
+        build(**_spec_kw(CFG.replace(family="ssm")))
+    with pytest.raises(ValueError, match="TARGET must be a dense-family arch, got hybrid"):
+        build(cfg=CFG.replace(family="hybrid"), **_spec_kw())
+    zamba = get_config("zamba2-7b").smoke().replace(quantize="serve")
+    build(dparams=init_model_quantized(zamba, torch.Generator().manual_seed(1),
+                                       quant_predicate, device="cpu"),
+          **_spec_kw(zamba)).close()
     # a MoE target and a MoE draft are served (tests/test_torch_moe_engine.py)
     moe = get_config("deepseek-moe-16b").smoke().replace(vocab=CFG.vocab)
     build(**_spec_kw(moe)).close()

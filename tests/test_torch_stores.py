@@ -356,7 +356,7 @@ def test_reset_slot_equals_fresh_store(backend, kv_dtype):
 def test_make_store_backend_selection():
     assert isinstance(make_store(CFG, 2, 32, device="cpu"), ContiguousKVStore)
     assert isinstance(make_store(CFG, 2, 32, backend="paged", device="cpu"), PagedKVStore)
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="supports ssm/hybrid state caches, not dense"):
         make_store(CFG, 2, 32, backend="recurrent")
     with pytest.raises(ValueError, match="item 11"):
         make_store(CFG.replace(family="ssm"), 2, 32)
@@ -424,7 +424,7 @@ def test_paged_lease_batches_table_uploads():
     ({"cache_backend": "paged", "block_size": 8, "prefix_cache": True,
       "buckets": (12, 32)}, "to divide every prefill bucket"),
     ({"buckets": (64,)}, "exceeds max_seq_len"),
-    ({"cache_backend": "recurrent"}, "item 11"),
+    ({"cache_backend": "recurrent"}, "supports ssm/hybrid state caches, not dense"),
 ])
 def test_engine_rejects_bad_configs(params, kw, match):
     with pytest.raises(ValueError, match=match):
