@@ -14,7 +14,8 @@ seconds since the previous line):
                 epilogue bitwise, in both regimes of its plan and both split
                 paths, ragged shapes and -128 operands included, and at
                 every projection of the other served configs; paged
-                attention: their hd-128 head layouts, partial leases, horizons on split boundaries, at
+                attention: their hd-128 head layouts (qwen2-vl's 12/2 too),
+                partial leases, horizons on split boundaries, at
                 0, at the last cell and past S, the 2048-token context,
                 poisoned cells, and the engine's prefill rows at the serve
                 batch's and the chunked phase's shapes, 1e-5;
@@ -78,7 +79,7 @@ seconds since the previous line):
                 row bitwise the fused prefill's; tok/s, TTFT, the sampled
                 and greedy decode step and the sampler's device time
  14. speculative — greedy draft-verify decode (spec_k = 4) on the serve
-                traffic (tinyllama at full width and depth, 22 layers),
+                traffic (tinyllama at full width and 11 of its 22 layers),
                 contiguous, gather bridge and block-native plain,
                 with the target's weights and other weights as the draft:
                 tokens and retire-time cache rows bitwise plain decode's,
@@ -107,31 +108,32 @@ seconds since the previous line):
                 applications on the CPU through the plain versions
  18. gptpu_profile — each application's host wall time beside the device
                 time torch.profiler sees in it, and its top kernels
- 19. moe      — deepseek-moe-16b at full width and depth (streamed W8A8
-                build: its seconds and peak device memory) on the serve
+ 19. moe      — deepseek-moe-16b at full width and 7 of its 28 layers
+                (streamed W8A8 build: its seconds and peak device memory) on the serve
                 traffic: the kernel route twice (tokens equal), each
                 request alone on a one-slot engine, contiguous, bridge and
                 block-native plain bitwise in tokens and valid cache
                 entries, the kernel route held to plain at f32, launches
-                held to the forwards (qgemm 197 per forward), int8 KV,
+                held to the forwards (qgemm 50 per forward), int8 KV,
                 speculative decode with the target as its own draft
                 (bitwise plain decode's, acceptance 1.0), Engine.embed, a
                 decode step's profile (the routed experts' device time
                 beside qgemm's), and the card against the CPU at 2 layers
  20. dense_configs — qwen3-14b (qk_norm), starcoder2-15b (LayerNorm, GeLU)
-                and granite-20b (MQA) in turn at full width and depth on
+                and granite-20b (MQA) in turn at full width and a quarter
+                of their depth (10, 10 and 13 layers) on
                 the kernel route: the serve traffic, request 0 alone,
                 launches held to each config's count, build seconds and
                 peak memory, tok/s, TTFT, a decode step's profile, and the
                 card against the CPU at 2 layers
- 21. hybrid   — zamba2-7b at full width and depth (81 layers: 13 groups of
-                a shared attention block with its LoRA W_q and 6 Mamba2
-                layers, then 3) on the recurrent state store, streamed
+ 21. hybrid   — zamba2-7b at full width and 13 of its 81 layers (2 groups
+                of a shared attention block with its LoRA W_q and 6 Mamba2
+                layers, then 1) on the recurrent state store, streamed
                 W8A8 build (seconds, peak memory, weight bytes): the row
                 probes (the float W_q product, the ssm readout and the
                 gated norm at 1, 3, 8 and 64 rows, the port's forms
                 bitwise); 8 requests of 16 + 16 tokens 2 steps apart
-                twice (tokens equal, qgemm 403 launches a position:
+                twice (tokens equal, qgemm 65 launches a position:
                 admission replays the decode body over the bucket);
                 requests 0 and 7 alone; Engine.embed; a decode step's
                 profile (qgemm, the state update and readout, the W_q
@@ -142,11 +144,41 @@ seconds since the previous line):
                 check_reference's fixed rule, the admission and 3 steps
                 within twice the CPU's own one-ulp spread (that spread
                 capped), two planted Mamba2 faults failing all three
+ 22. xlstm    — xlstm-125m at full width and depth (12 layers: 6
+                mLSTM/sLSTM pairs, d_model 768, 4 heads of 192) on the
+                recurrent store, streamed W8A8 build: the decode body's
+                row probes (readout and normalizer trees, the fixed-row
+                recurrent and up/down products at 1, 3, 8 and 64 rows,
+                bitwise); 8 requests of 128 + 32 tokens 2 steps apart
+                twice (tokens equal, qgemm 67 launches a position);
+                requests 0 and 7 alone; Engine.embed; a decode step's
+                profile (qgemm, the mLSTM and sLSTM steps); tinyllama-1.1b
+                with a full-depth xlstm draft (vocab 32000: tokens and rows
+                bitwise plain decode's, in lockstep); the card against the
+                CPU at full depth by the hybrid's three scopes, two planted
+                mLSTM faults failing all three and an sLSTM one reported
+ 23. vlm      — qwen2-vl-2b at full width and depth (28 layers, 12/2
+                heads of hd 128, M-RoPE), streamed W8A8 build: 8 rows of
+                256 patch embeddings with (t, h, w) positions prefilled
+                into a contiguous store and block-native paged stores
+                without and with the kernel, 32 text decode steps on each
+                (contiguous and paged-plain bitwise in tokens and valid
+                cache entries; qgemm 197 a forward, paged attention 28 a
+                forward on the kernel route only); the kernel route held to
+                plain at f32; apply_mrope card against CPU; a decode
+                step's profile; the card against the CPU at 2 layers
+ 24. encdec   — seamless-m4t-medium at full width and depth (12 + 12
+                layers, vocab 256206 padded to 256208), streamed W8A8
+                build: the forward over 8 rows of 256 tokens and 64 frames
+                (qgemm 193, the padded columns below -1e29 and never an
+                argmax), the chunked attention against the plain one, 32
+                decode steps (qgemm 97 a step), a decode step's profile,
+                the card against the CPU at 2 + 2 layers
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
 sampling, speculative, fleet (its in-process runs), gptpu, ops, moe,
-dense_configs and hybrid; ``ms`` and
+dense_configs, hybrid, xlstm, vlm and encdec; ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -280,15 +312,25 @@ def qgemm_bound(M, K, N, out_bytes=2):
 # qwen3-14b (q and o 5120 x 5120, k and v 5120 x 1024, MLP 5120 <-> 17408,
 # lm_head 151936), starcoder2-15b (k and v 6144 x 512, MLP 6144 <-> 24576,
 # lm_head 49152) and granite-20b (k and v 6144 x 128); q and o of the last
-# two are 6144 x 6144; and zamba2-7b (HYBRID_PAIRS)
+# two are 6144 x 6144; zamba2-7b (HYBRID_PAIRS); and the last three families
+# (LAST_FAMILY_PAIRS)
 # zamba2-7b: a mamba layer's wz 3584 x 7168, wxbc 3584 x 7296, wdt 3584 x 112
 # and wo 7168 x 3584; the shared block's k, v and o 3584 x 3584 and MLP
 # 3584 <-> 14336; the lm_head 3584 x 32000
 HYBRID_PAIRS = ((3584, 7168), (3584, 7296), (3584, 112), (7168, 3584), (3584, 3584),
                 (3584, 14336), (14336, 3584), (3584, 32000))
+# xlstm-125m: the mLSTM's q, k, v, o-gate and o and the sLSTM's gates 768 x
+# 768, the mLSTM's per-head input and forget gates 768 x 4, the lm_head
+# 768 x 50304; qwen2-vl-2b: q and o 1536 x 1536, k and v 1536 x 256, the
+# MLP 1536 <-> 8960, the lm_head 1536 x 151936; seamless-m4t-medium:
+# attention 1024 x 1024, the MLP 1024 <-> 4096, the lm_head 1024 x 256208
+LAST_FAMILY_PAIRS = ((768, 768), (768, 4), (768, 50304), (1536, 1536), (1536, 256),
+                     (1536, 8960), (8960, 1536), (1536, 151936), (1024, 1024),
+                     (1024, 4096), (4096, 1024), (1024, 256208))
 MODEL_PAIRS = ((2048, 2816), (2816, 2048), (2048, 102400), (5120, 5120), (5120, 1024),
                (5120, 17408), (17408, 5120), (5120, 151936), (6144, 6144), (6144, 512),
-               (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152)) + HYBRID_PAIRS
+               (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152)) + HYBRID_PAIRS \
+    + LAST_FAMILY_PAIRS
 
 
 def check_qgemm(dev):
@@ -472,7 +514,7 @@ def plain_in_slices(q, k, v, tables, index, rows=128):
 
 # the query / KV head layouts at hd 128 of the other served configs
 HD128 = {"hd128_deepseek": (16, 16), "hd128_qwen3": (40, 8), "hd128_starcoder2": (48, 4),
-         "hd128_granite": (48, 1)}
+         "hd128_granite": (48, 1), "hd128_qwen2vl": (12, 2)}
 
 
 def split_edges(H, KV, MB=10, bs=16):
@@ -1817,7 +1859,8 @@ def snapshot_engine_cls():
 
 
 def check_speculative():
-    """Greedy speculative decode (spec_k = 4) on the serve traffic through
+    """Greedy speculative decode (spec_k = 4) on the serve traffic, at
+    SPEC_LAYERS of tinyllama's layers, through
     the contiguous store, the paged gather bridge and block-native plain,
     with a good draft (the target's weights) and a bad one (generator seed
     --seed + 1): tokens and every request's retire-time cache rows bitwise
@@ -1828,7 +1871,7 @@ def check_speculative():
     import torch
     from repro_torch.launch import serve
     from repro_torch.models.model import init_model_quantized
-    cfg, params, prompts, args = serve_setup()
+    cfg, params, prompts, args = serve_setup(n_layers=SPEC_LAYERS)
     gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
     bad = init_model_quantized(cfg, gen, serve.quant_predicate, device=args.device)
     out, launches_all = {}, []
@@ -2219,6 +2262,16 @@ def check_fleet(serve_reqs, serve_stats, contiguous_tokens):
 MOE_ARCH = "deepseek-moe-16b"
 DENSE_ARCHS = ("qwen3-14b", "starcoder2-15b", "granite-20b")
 REFERENCE_LAYERS = 2   # depth of the card-vs-CPU reference of the other configs
+# Depth cuts of earlier slices' paths, so that the whole script, with this
+# slice's three families at full width and depth, stays inside the 1200 s a
+# run may take on a slow host too (a run whose host took 1043 s to reach
+# the hybrid phase, against 926 s for a whole run before): every width and
+# every check stays, the stack is shorter
+SPEC_LAYERS = 11       # tinyllama in the speculative phase, of 22
+MOE_LAYERS = 7         # deepseek-moe-16b, of 28
+DENSE_LAYERS = {"qwen3-14b": 10, "starcoder2-15b": 10, "granite-20b": 13}  # of 40, 40, 52
+HYBRID_LAYERS = 13     # zamba2-7b, of 81: two groups of the shared block and 6
+                       # mamba layers, and one tail layer
 
 
 def build_arch(arch, argv=None, **replace):
@@ -2312,7 +2365,7 @@ def dequant_times(cfg, params):
 
 
 def check_moe():
-    """deepseek-moe-16b at full width and depth behind the Engine, built by
+    """deepseek-moe-16b at full width and MOE_LAYERS layers behind the Engine, built by
     the streamed build, on the serve traffic (SERVE_ARGS with its --arch):
     the kernel route twice (tokens equal); each request alone on a one-slot
     engine (the batched tokens); contiguous, gather bridge and block-native
@@ -2320,8 +2373,8 @@ def check_moe():
     route held to block-native plain by check_reference's rule at f32
     (``kernel_vs_plain_route``: the kernel is the plain contraction's
     function to 1e-5, not its bits); launches held to the forwards on
-    every route (qgemm 197 per forward: 4 attention and 3 shared-expert
-    projections a layer and the lm_head); the int8 KV cache on the kernel
+    every route (qgemm 7 a layer and 1 per forward: 4 attention and 3
+    shared-expert projections a layer and the lm_head); the int8 KV cache on the kernel
     route; greedy speculative decode with the target as its own draft on
     the contiguous store (tokens and retire-time rows bitwise plain
     decode's, acceptance within the budget 1.0); ``Engine.embed``; a decode
@@ -2331,8 +2384,9 @@ def check_moe():
     import numpy as np
     from repro_torch.serving.engine import Engine, EngineConfig
     laps, lap = lap_clock()
-    (cfg, params, prompts, args), build = build_arch(MOE_ARCH)
-    check(per_forward(cfg) == 197, f"{MOE_ARCH}: {per_forward(cfg)} qgemm launches a forward")
+    (cfg, params, prompts, args), build = build_arch(MOE_ARCH, n_layers=MOE_LAYERS)
+    check(per_forward(cfg) == 7 * MOE_LAYERS + 1,
+          f"{MOE_ARCH}: {per_forward(cfg)} qgemm launches a forward")
     runs, launches = {}, []
     lap("build")
     first = drive(cfg, params, prompts, args, **ROUTES["native_kernel"])
@@ -2393,7 +2447,7 @@ def check_moe():
 
 def check_dense_configs():
     """qwen3-14b (qk_norm), starcoder2-15b (LayerNorm, GeLU) and granite-20b
-    (MQA), each at full width and depth behind the Engine on the kernel
+    (MQA), each at full width and DENSE_LAYERS layers behind the Engine on the kernel
     route, built by the streamed build, one at a time (each freed before
     the next): the serve traffic once, request 0 alone on a one-slot engine
     (the same tokens), launches held to the config's count, the build's
@@ -2403,7 +2457,7 @@ def check_dense_configs():
     out, launches = {}, []
     for arch in DENSE_ARCHS:
         laps, lap = lap_clock()
-        (cfg, params, prompts, args), build = build_arch(arch)
+        (cfg, params, prompts, args), build = build_arch(arch, n_layers=DENSE_LAYERS[arch])
         lap("build")
         run = drive(cfg, params, prompts, args, **ROUTES["native_kernel"])
         reqs = run[0]
@@ -2514,20 +2568,23 @@ def hybrid_row_probes(cfg):
     return out
 
 
-def check_hybrid_launches(name, cfg, stats, launches):
+def check_recurrent_launches(name, stats, launches, per):
+    """qgemm launched ``per`` times a forward of one position (each decode
+    step, and each position of each admission's masked scan), paged
+    attention never."""
     forwards = stats["decode_steps"] + scan_forwards(stats, "prefill")
-    check(launches["qgemm"] == hybrid_per_forward(cfg) * forwards,
+    check(launches["qgemm"] == per * forwards,
           f"{name}: qgemm launched {launches['qgemm']} times, expected "
-          f"{hybrid_per_forward(cfg)} x {forwards} forwards")
+          f"{per} x {forwards} forwards")
     check(launches["paged_decode_attention"] == 0, f"{name}: paged attention launched")
     return forwards
 
 
-def hybrid_stepper(cfg, params, B=8, P=32, S=48):
-    """A served hybrid decode step at full width: 8 slots at position P of
-    S-position rows on the recurrent store, every slot active, greedy
-    tokens fed back. The rows start pristine (no admission): a step's work
-    does not depend on the state's values."""
+def recurrent_stepper(cfg, params, B=8, P=32, S=48):
+    """A served decode step of a recurrent model at full width: 8 slots at
+    position P of S-position rows on the recurrent store, every slot
+    active, greedy tokens fed back. The rows start pristine (no
+    admission): a step's work does not depend on the state's values."""
     import torch
     from repro_torch.models import serve as SV
     from repro_torch.serving.store import RecurrentStateStore
@@ -2543,47 +2600,52 @@ def hybrid_stepper(cfg, params, B=8, P=32, S=48):
     return step
 
 
-def profile_hybrid(cfg, params, n=1):
-    """A served hybrid decode step (``hybrid_stepper``): host wall ms,
-    device busy ms, its top kernels, and the device ms under qgemm, the
-    SSM state update and readout (``ssm.ssm_step``), the shared W_q's
-    dequantization and LoRA merge (``model.shared_attn_params``), and the
-    rest."""
-    from repro_torch.models import model as M, ssm as SSM
-    step = hybrid_stepper(cfg, params)
+def profile_recurrent(cfg, params, ranges, n=1):
+    """A served recurrent decode step (``recurrent_stepper``): host wall ms,
+    device busy ms, its top kernels, and the device ms under qgemm and
+    under each of ``ranges``, (module, function, label) triples reported as
+    ``<label>_ms_per_step``, and the rest."""
+    step = recurrent_stepper(cfg, params)
     for _ in range(2):
         step()
-    ranges = ((SSM, "ssm_step"), (M, "shared_attn_params"))
-    wall_ms, prof = measure_steps(step, n, ranges)
-    busy_ms, top = device_time(prof, n, 8, ranges=[f for _, f in ranges])
+    wall_ms, prof = measure_steps(step, n, [(m, f) for m, f, _ in ranges])
+    busy_ms, top = device_time(prof, n, 8, ranges=[f for _, f, _ in ranges])
     check(busy_ms > 0, f"{cfg.name}: the decode profile holds no device time")
     qgemm_ms = device_time(prof, n, 0, "qgemm")[0]
-    ssm_ms = range_device_ms(prof, n, "ssm_step")
-    wq_ms = range_device_ms(prof, n, "shared_attn_params")
-    return {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms, "qgemm_ms_per_step": qgemm_ms,
-            "ssm_update_and_readout_ms_per_step": ssm_ms,
-            "wq_dequant_and_lora_ms_per_step": wq_ms,
-            "rest_ms_per_step": busy_ms - qgemm_ms - (ssm_ms or 0) - (wq_ms or 0),
-            "top_kernels_ms_per_step": top}
+    out = {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms, "qgemm_ms_per_step": qgemm_ms}
+    rest = busy_ms - qgemm_ms
+    for _, f, label in ranges:
+        out[f"{label}_ms_per_step"] = ms = range_device_ms(prof, n, f)
+        rest -= ms or 0
+    return dict(out, rest_ms_per_step=rest, top_kernels_ms_per_step=top)
 
 
-def hybrid_draft_speculative(prompts, hargs):
-    """Greedy speculative decode of tinyllama-1.1b (full width) with a
-    zamba2-7b draft at full width and HYBRID_DRAFT_LAYERS layers, on the
-    contiguous store, over the hybrid traffic: tokens and every request's
-    retire-time cache rows bitwise plain decode's; after every engine step
-    each active slot's draft index equals the target's; qgemm launches held
-    to the target's forwards (155 each) and the draft's (its decode steps
-    and each admission's scan positions)."""
+def profile_hybrid(cfg, params, n=1):
+    """A served hybrid decode step: the device ms under qgemm, the SSM state
+    update and readout (``ssm.ssm_step``) and the shared W_q's
+    dequantization and LoRA merge (``model.shared_attn_params``)."""
+    from repro_torch.models import model as M, ssm as SSM
+    return profile_recurrent(cfg, params, (
+        (SSM, "ssm_step", "ssm_update_and_readout"),
+        (M, "shared_attn_params", "wq_dequant_and_lora")), n)
+
+
+def recurrent_draft_speculative(prompts, args, dcfg, draft_per_forward):
+    """Greedy speculative decode of tinyllama-1.1b (full width) with the
+    recurrent draft ``dcfg`` (its weights from ``args.seed``), on the
+    contiguous store, over ``prompts`` with ``args``' traffic: tokens and
+    every request's retire-time cache rows bitwise plain decode's; after
+    every engine step each active slot's draft index equals the target's;
+    qgemm launches held to the target's forwards (155 each) and the
+    draft's (``draft_per_forward`` for each of its decode steps and each
+    position of each admission's scan)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.model import init_model_quantized
     cfg, params, _, _ = serve_setup()
-    dcfg = get_config(HYBRID_ARCH).replace(n_layers=HYBRID_DRAFT_LAYERS, quantize="serve")
-    gen = torch.Generator(device="cuda").manual_seed(hargs.seed)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     dparams = init_model_quantized(dcfg, gen, serve.quant_predicate, device="cuda")
     snap = snapshot_engine_cls()
 
@@ -2596,11 +2658,11 @@ def hybrid_draft_speculative(prompts, hargs):
                 check(self.draft_store.slot_index(slot) == self.store.slot_index(slot),
                       f"slot {slot}: the draft's index left the target's")
                 self.lockstep_checks += 1
-    plain = drive(cfg, params, prompts, hargs, engine_cls=snap, cache_backend="contiguous")
+    plain = drive(cfg, params, prompts, args, engine_cls=snap, cache_backend="contiguous")
     reqs, stats, launches, wall, _, engine, round_s = drive(
-        cfg, params, prompts, hargs, engine_cls=Lockstep, draft_params=dparams,
+        cfg, params, prompts, args, engine_cls=Lockstep, draft_params=dparams,
         speculative=True, spec_k=SPEC_K, draft=dcfg, cache_backend="contiguous")
-    name = f"{cfg.name} with a {HYBRID_DRAFT_LAYERS}-layer {HYBRID_ARCH} draft"
+    name = f"{cfg.name} with a {dcfg.n_layers}-layer {dcfg.name} draft"
     check(engine.draft_store.kind == "recurrent", f"{name}: the draft store is not recurrent")
     check([r.tokens for r in reqs] == [r.tokens for r in plain[0]],
           f"{name}: speculative tokens differ from plain decode's")
@@ -2611,11 +2673,12 @@ def hybrid_draft_speculative(prompts, hargs):
     check(engine.lockstep_checks > 0, f"{name}: no lockstep check ran")
     target_forwards = stats["decode_steps"] + stats["prefill_batches"]
     draft_forwards = stats["draft_steps"] + scan_forwards(stats, "draft_prefill")
-    want = per_forward(cfg) * target_forwards + hybrid_per_forward(dcfg) * draft_forwards
+    want = per_forward(cfg) * target_forwards + draft_per_forward * draft_forwards
     check(launches["qgemm"] == want,
           f"{name}: qgemm launched {launches['qgemm']} times, expected {want}")
     snapshot_bytes = engine.draft_store.nbytes()
-    out = {"target": cfg.name, "draft": HYBRID_ARCH, "draft_layers": dcfg.n_layers,
+    out = {"target": cfg.name, "draft": dcfg.name, "draft_layers": dcfg.n_layers,
+           "draft_vocab": dcfg.vocab, "prompt_len": args.prompt_len, "gen": args.gen,
            "spec_k": SPEC_K, "tokens_and_rows_bitwise_plain": True,
            "lockstep_checks": engine.lockstep_checks,
            "spec_rounds": stats["spec_rounds"], "draft_steps": stats["draft_steps"],
@@ -2630,17 +2693,23 @@ def hybrid_draft_speculative(prompts, hargs):
            "draft_store_bytes": snapshot_bytes,
            "snapshot_bytes_per_round": (SPEC_K + 1) * snapshot_bytes,
            "device_peak_bytes": stats["device_peak_bytes"],
-           "qgemm_per_forward": {"target": per_forward(cfg),
-                                 "draft": hybrid_per_forward(dcfg)},
+           "qgemm_per_forward": {"target": per_forward(cfg), "draft": draft_per_forward},
            "launches": launches}
     del params, dparams, engine, plain
     free_device()
     return out, launches
 
 
+def hybrid_draft_speculative(prompts, hargs):
+    """tinyllama-1.1b with a zamba2-7b draft of HYBRID_DRAFT_LAYERS layers
+    over the hybrid traffic (``recurrent_draft_speculative``)."""
+    from repro_torch.configs import get_config
+    dcfg = get_config(HYBRID_ARCH).replace(n_layers=HYBRID_DRAFT_LAYERS, quantize="serve")
+    return recurrent_draft_speculative(prompts, hargs, dcfg, hybrid_per_forward(dcfg))
+
+
 SENSITIVITY_FACTOR = 2.0       # card vs CPU over the run: at most this times the CPU's one-ulp spread
 SENSITIVITY_CAP = (0.15, 0.03)  # that spread's max and RMS over the logits' absolute max, at most
-PLANTED_FAULTS = ("dskip_dropped", "conv_tap_dropped")
 
 
 def rule_fractions(g, c):
@@ -2656,9 +2725,9 @@ def within_fixed_rule(fractions):
     return fractions[0] <= FIXED_RULE[0] and fractions[1] <= FIXED_RULE[1]
 
 
-def hybrid_cache_rows(cache, rows):
-    """A copy of rows ``rows`` of a hybrid decode cache (batch axis 0 of the
-    index, 1 of every other leaf)."""
+def cache_rows(cache, rows):
+    """A copy of rows ``rows`` of a recurrent decode cache (batch axis 0 of
+    the index, 1 of every other leaf; nested dicts and None kept)."""
     def take(name, t):
         if t is None:
             return None
@@ -2669,46 +2738,61 @@ def hybrid_cache_rows(cache, rows):
 
 
 @contextlib.contextmanager
-def hybrid_layer_taps(feed=None):
-    """Records every shared-block application and mamba layer that the
-    hybrid decode body (models/serve.py) calls, in call order: (kind, input
-    x, output x, new (conv, ssm) states or None). With ``feed`` (an earlier
+def layer_taps(wrapped, feed=None):
+    """Records every call of the model functions ``wrapped`` (name in
+    models/model.py -> (kind, the position of its x argument, fn(result) ->
+    (output x, new states tuple or None))) that a decode body makes, in
+    call order: (kind, input x, output x, states). With ``feed`` (an earlier
     recording) each call's input x is replaced by that call's recorded
     input, on this call's device: every layer then runs on the recording's
     input, whatever the layers before it gave."""
     from repro_torch.models import model as M
-    mamba, shared, taps = M.mamba_layer, M.shared_block, []
+    saved, taps = {name: getattr(M, name) for name in wrapped}, []
 
-    def given(x):
-        return x if feed is None else feed[len(taps)][1].to(x.device)
+    def tapped(name):
+        kind, at, split = wrapped[name]
+        fn = saved[name]
 
-    def mamba_tap(lp, x, cfg, **kw):
-        x = given(x)
-        out, states = mamba(lp, x, cfg, **kw)
-        taps.append(("mamba", x, out, states))
-        return out, states
-
-    def shared_tap(hp, g, x, cfg, attend):
-        x = given(x)
-        out = shared(hp, g, x, cfg, attend)
-        taps.append(("shared", x, out, None))
-        return out
-    M.mamba_layer, M.shared_block = mamba_tap, shared_tap
+        def call(*a, **kw):
+            a = list(a)
+            if feed is not None:
+                a[at] = feed[len(taps)][1].to(a[at].device)
+            result = fn(*a, **kw)
+            taps.append((kind, a[at]) + split(result))
+            return result
+        return call
+    for name in wrapped:
+        setattr(M, name, tapped(name))
     try:
         yield taps
     finally:
-        M.mamba_layer, M.shared_block = mamba, shared
+        for name, fn in saved.items():
+            setattr(M, name, fn)
 
 
-def hybrid_layer_fractions(card, cpu):
+def hybrid_layer_taps(feed=None):
+    """``layer_taps`` of the hybrid decode body: each shared-block
+    application (no states) and mamba layer (new conv and ssm states)."""
+    return layer_taps({"mamba_layer": ("mamba", 1, lambda r: (r[0], tuple(r[1]))),
+                       "shared_block": ("shared", 2, lambda r: (r, None))}, feed)
+
+
+def xlstm_pair_taps(feed=None):
+    """``layer_taps`` of the xlstm decode body: each mLSTM/sLSTM pair, with
+    its new mLSTM (C, n, m) and sLSTM (c, n, h, m) states."""
+    return layer_taps({"xlstm_pair": ("pair", 1, lambda r: (r[0], tuple(r[1][0]) +
+                                                             tuple(r[1][1])))}, feed)
+
+
+def layer_fractions(card, cpu, state_names):
     """Each layer's fixed-rule fractions, card against CPU on the same
-    input: its output's change to the residual stream, and a mamba layer's
-    new conv and ssm states."""
+    input: its output's change to the residual stream, and each of its new
+    states (``state_names``)."""
     out = []
     for (kind, x, o, s), (_, xc, oc, sc) in zip(card, cpu):
         row = {"kind": kind, "delta": rule_fractions(o - x, oc - xc)}
         if s is not None:
-            row.update(conv=rule_fractions(s[0], sc[0]), ssm=rule_fractions(s[1], sc[1]))
+            row.update({n: rule_fractions(a, b) for n, a, b in zip(state_names, s, sc)})
         out.append(row)
     return out
 
@@ -2717,35 +2801,85 @@ def layer_holds(row):
     return all(within_fixed_rule(v) for k, v in row.items() if k != "kind")
 
 
-def planted_fault(params, fault):
-    """``params`` with one Mamba2 piece broken in every layer, a copy:
+def hybrid_fault(fault):
+    """A copy of hybrid params with one Mamba2 piece broken in every layer:
     ``dskip_dropped`` drops the readout's D x skip term (Dskip 0),
     ``conv_tap_dropped`` the conv's oldest tap (conv_w[0] 0)."""
     import torch
-    hp = params["hybrid"]
 
-    def broken(part):
-        if part is None:
-            return None
-        m = dict(part["mamba"])
-        if fault == "dskip_dropped":
-            m["Dskip"] = torch.zeros_like(m["Dskip"])
-        else:
-            m["conv_w"] = m["conv_w"].clone()
-            m["conv_w"][..., 0, :] = 0
-        return dict(part, mamba=m)
-    return dict(params, hybrid=dict(hp, groups=broken(hp["groups"]), tail=broken(hp["tail"])))
+    def apply(params):
+        hp = params["hybrid"]
+
+        def broken(part):
+            if part is None:
+                return None
+            m = dict(part["mamba"])
+            if fault == "dskip_dropped":
+                m["Dskip"] = torch.zeros_like(m["Dskip"])
+            else:
+                m["conv_w"] = m["conv_w"].clone()
+                m["conv_w"][..., 0, :] = 0
+            return dict(part, mamba=m)
+        return dict(params, hybrid=dict(hp, groups=broken(hp["groups"]),
+                                        tail=broken(hp["tail"])))
+    return apply
 
 
-def check_reference_hybrid(n_layers, P=16, n_steps=3):
-    """zamba2-7b at full width and ``n_layers`` layers on the card against
-    the same model on the CPU (plain versions), same weights and inputs, in
-    the f32 compute dtype, at three scopes.
+XLSTM_FAULTS = {"forget_bias_dropped": ("mlstm", "b_f"),
+                "output_gate_dropped": ("mlstm", "wo_gate"),
+                "slstm_recurrence_dropped": ("slstm", ("rz", "ri", "rf", "ro"))}
+
+
+def xlstm_fault(fault):
+    """A copy of xlstm params with one piece broken in every pair
+    (XLSTM_FAULTS): ``forget_bias_dropped`` sets the mLSTM's forget-gate
+    bias b_f to 0 (it is 3); ``output_gate_dropped`` zeroes the mLSTM's
+    output-gate projection (its int8 codes), so the gate reads
+    sigmoid(0) = 1/2; ``slstm_recurrence_dropped`` zeroes the sLSTM's
+    recurrent weights R, so h_{t-1} no longer feeds its gates."""
+    block, leaves = XLSTM_FAULTS[fault]
+    leaves = (leaves,) if isinstance(leaves, str) else leaves
+
+    def zero(t):
+        import torch
+        from repro_torch.core import tensorizer as tz
+        if isinstance(t, tz.QTensor):
+            return tz.QTensor(torch.zeros_like(t.q), t.scale, tuple(t.q.shape))
+        return torch.zeros_like(t)
+
+    def apply(params):
+        pairs = params["xlstm"]["pairs"]
+        part = dict(pairs[block], **{n: zero(pairs[block][n]) for n in leaves})
+        return dict(params, xlstm={"pairs": dict(pairs, **{block: part})})
+    return apply
+
+
+HYBRID_REFERENCE = {"taps": hybrid_layer_taps, "state_names": ("conv", "ssm"),
+                    "stateful": "mamba", "kinds": ("mamba", "shared"),
+                    "faults": {f: hybrid_fault(f) for f in ("dskip_dropped",
+                                                            "conv_tap_dropped")}}
+XLSTM_REFERENCE = {"taps": xlstm_pair_taps,
+                   "state_names": ("mlstm_C", "mlstm_n", "mlstm_m", "slstm_c", "slstm_n",
+                                   "slstm_h", "slstm_m"),
+                   "stateful": "pair", "kinds": ("pair",),
+                   "faults": {f: xlstm_fault(f) for f in ("forget_bias_dropped",
+                                                          "output_gate_dropped")},
+                   # caught by the layer and run scopes, but one decode body
+                   # moves less than the fixed rule: reported, not required
+                   "reported_faults": {"slstm_recurrence_dropped":
+                                       xlstm_fault("slstm_recurrence_dropped")}}
+
+
+def check_reference_recurrent(arch, n_layers, spec, P=16, n_steps=3):
+    """A recurrent model (``arch`` at full width and ``n_layers`` layers) on
+    the card against the same model on the CPU (plain versions), same
+    weights and inputs, in the f32 compute dtype, at three scopes. ``spec``
+    (HYBRID_REFERENCE, XLSTM_REFERENCE) names the layer taps, the state
+    names, the stateful layer kind and the planted faults.
 
     Each layer alone: one decode position from the CPU's post-admission
-    state, every shared-block application and mamba layer fed the CPU's
-    input to it (``hybrid_layer_taps``): its output's change to the
-    residual stream and a mamba layer's new conv and ssm states within
+    state, every layer fed the CPU's input to it (``layer_taps``): its
+    output's change to the residual stream and its new states within
     check_reference's fixed rule (FIXED_RULE) of the CPU's.
 
     One decode body: the same position, the card's layers feeding each
@@ -2758,7 +2892,7 @@ def check_reference_hybrid(n_layers, P=16, n_steps=3):
     spread when every embedding entry moves by one f32 ulp (two more rows
     of the CPU's batch that read a nudged copy of the table; rows are
     independent), with the same greedy token wherever the CPU's top-2
-    margin is clear. This model moves as far under that nudge as the card
+    margin is clear. zamba2 moves as far under that nudge as the card
     moves from the CPU (12.7% max and 2.2% RMS of the logits' absolute
     max at 13 layers and 16 positions): a one-ulp change flips int8
     activation codes and the recurrence carries each flip into every later
@@ -2766,20 +2900,21 @@ def check_reference_hybrid(n_layers, P=16, n_steps=3):
     scale, so a more chaotic config fails here rather than widening the
     bound; whether the fixed rule held is reported.
 
-    Planted faults (PLANTED_FAULTS, ``planted_fault``: a Mamba2 piece
-    broken in the card's weights) must fail all three: every mamba layer
-    alone, the decode body and the run's relative bound."""
+    Planted faults (a piece broken in the card's weights) must fail all
+    three: every stateful layer alone, the decode body and the run's
+    relative bound. ``reported_faults`` are run the same way and what they
+    fail is reported, not required."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import quant_predicate
     from repro_torch.models import serve as SV
     from repro_torch.models.model import init_model_quantized
-    cfg = get_config(HYBRID_ARCH).replace(quantize="serve", dtype="float32",
-                                          n_layers=n_layers)
+    cfg = get_config(arch).replace(quantize="serve", dtype="float32", n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model_quantized(cfg, gen, quant_predicate, device="cuda")
     tokens = torch.randint(0, cfg.vocab, (2, P), generator=torch.Generator().manual_seed(5))
     V = cfg.vocab_padded
+    taps_of, names = spec["taps"], spec["state_names"]
 
     def run(p, toks, pick):
         """The admission, then n_steps decode steps fed ``pick(step,
@@ -2805,19 +2940,19 @@ def check_reference_hybrid(n_layers, P=16, n_steps=3):
         fed.append(t)
         return torch.cat([t, t + V])
     cpu_both, admitted = run(both, torch.cat([tokens, tokens + V]), greedy_twice)
-    state, tok = hybrid_cache_rows(admitted, [0, 1]), fed[0]
+    state, tok = cache_rows(admitted, [0, 1]), fed[0]
 
     # one decode position from the CPU's post-admission state: the CPU's
     # plain rows, and two rows that read the nudged table
-    with hybrid_layer_taps() as taps:
-        c_step = SV.decode(both, cfg, hybrid_cache_rows(admitted, [0, 1, 0, 1]),
+    with taps_of() as taps:
+        c_step = SV.decode(both, cfg, cache_rows(admitted, [0, 1, 0, 1]),
                            torch.cat([tok, tok + V]))[0][:, -1].float()
     feed = [(k, x[:2], o[:2], s and tuple(t[:2] for t in s)) for k, x, o, s in taps]
 
     def card_step(p, feed=None):
-        with hybrid_layer_taps(feed) as taps:
+        with taps_of(feed) as taps:
             logits = SV.decode(p, cfg, tree_to(state, "cuda"), tok.cuda())[0]
-        return logits[:, -1].float().cpu(), hybrid_layer_fractions(taps, feed or [])
+        return logits[:, -1].float().cpu(), layer_fractions(taps, feed or [], names)
 
     def worst(rows, kind):
         picked = [v for r in rows if r["kind"] == kind for k, v in r.items() if k != "kind"]
@@ -2826,11 +2961,11 @@ def check_reference_hybrid(n_layers, P=16, n_steps=3):
     check(all(layer_holds(r) for r in layers),
           f"card vs CPU, each layer on the same input: a layer outside the fixed rule "
           f"{[r for r in layers if not layer_holds(r)][:2]}")
-    out = {"arch": HYBRID_ARCH, "n_layers": n_layers, "prompt_tokens": P,
+    out = {"arch": arch, "n_layers": n_layers, "prompt_tokens": P,
            "fixed_rule": list(FIXED_RULE), "sensitivity_factor": SENSITIVITY_FACTOR,
            "sensitivity_cap": list(SENSITIVITY_CAP),
-           "layers_alone": {"layers": len(layers), "worst_mamba": worst(layers, "mamba"),
-                            "worst_shared": worst(layers, "shared")}}
+           "layers_alone": {"layers": len(layers),
+                            **{f"worst_{k}": worst(layers, k) for k in spec["kinds"]}}}
     g_step = card_step(params)[0]
     out["decode_body"] = dict(hold_card_to_cpu("one decode body", g_step, c_step[:2]),
                               cpu_one_ulp_embed_fractions=rule_fractions(c_step[2:],
@@ -2844,8 +2979,8 @@ def check_reference_hybrid(n_layers, P=16, n_steps=3):
                 "rms_diff": float((n - c).pow(2).mean().sqrt())}
         return got, sens, all(got[k] <= SENSITIVITY_FACTOR * sens[k] for k in got)
     g_outs = run(params, tokens.cuda(), lambda i, logits: fed[i])[0]
-    names = ["prefill_recurrent"] + [f"decode{i}" for i in range(n_steps)]
-    for name, g, cn in zip(names, g_outs, cpu_both):
+    labels = ["prefill_recurrent"] + [f"decode{i}" for i in range(n_steps)]
+    for name, g, cn in zip(labels, g_outs, cpu_both):
         c = cn[:2]
         check(bool(torch.isfinite(g).all()), f"non-finite {name} logits on the card")
         got, sens, holds = relative(g, cn)
@@ -2864,24 +2999,27 @@ def check_reference_hybrid(n_layers, P=16, n_steps=3):
                      "cpu_one_ulp_embed_sensitivity": sens,
                      "fixed_rule_holds": within_fixed_rule(rule_fractions(g, c))}
 
-    out["planted_faults"] = {}
-    for fault in PLANTED_FAULTS:
-        broken = planted_fault(params, fault)
+    out["planted_faults"], out["reported_faults"] = {}, {}
+    stateful = spec["stateful"]
+    faults = [(f, b, True) for f, b in spec["faults"].items()]
+    faults += [(f, b, False) for f, b in spec.get("reported_faults", {}).items()]
+    for fault, breaks, required in faults:
+        broken = breaks(params)
         rows = card_step(broken, feed)[1]
         body = rule_fractions(card_step(broken)[0], c_step[:2])
         run_holds = [relative(g, cn)[2] for g, cn in zip(
             run(broken, tokens.cuda(), lambda i, logits: fed[i])[0], cpu_both)]
-        mamba_rows = [r for r in rows if r["kind"] == "mamba"]
-        flagged = sum(not layer_holds(r) for r in mamba_rows)
-        check(flagged == len(mamba_rows) and not within_fixed_rule(body)
-              and not any(run_holds),
+        hit = [r for r in rows if r["kind"] == stateful]
+        flagged = sum(not layer_holds(r) for r in hit)
+        check(not required or (flagged == len(hit) and not within_fixed_rule(body)
+                               and not any(run_holds)),
               f"planted fault {fault} passed a card-vs-CPU rule: {flagged} of "
-              f"{len(mamba_rows)} mamba layers flagged, decode body {body}, run "
+              f"{len(hit)} {stateful} layers flagged, decode body {body}, run "
               f"outputs within the relative bound {run_holds}")
-        out["planted_faults"][fault] = {
-            "mamba_layers_flagged": flagged,
+        out["planted_faults" if required else "reported_faults"][fault] = {
+            f"{stateful}_layers_flagged": flagged,
             "least_layer_max_fraction": min(max(v[0] for k, v in r.items() if k != "kind")
-                                            for r in mamba_rows),
+                                            for r in hit),
             "decode_body_fractions": body,
             "run_outputs_within_relative_bound": sum(run_holds)}
         del broken
@@ -2891,13 +3029,13 @@ def check_reference_hybrid(n_layers, P=16, n_steps=3):
 
 
 def check_hybrid():
-    """zamba2-7b at full width and depth (81 layers) behind the Engine on the
-    recurrent store, built by the streamed build: the three row-invariance
-    probes; the hybrid traffic (8 slots; 8 requests of 16 + 16 tokens, 2
-    steps apart: admission replays the decode body once per prompt
-    position, and 32-token prompts took the phase past 300 s) twice,
+    """zamba2-7b at full width and HYBRID_LAYERS layers behind the Engine on
+    the recurrent store, built by the streamed build: the three
+    row-invariance probes; the hybrid traffic (8 slots; 8 requests of 16 +
+    16 tokens, 2 steps apart: admission replays the decode body once per
+    prompt position, and 32-token prompts took the phase past 300 s) twice,
     tokens equal and in the vocabulary, qgemm launches held to the
-    forwards (403 a position); requests 0 and 7 alone on a one-slot engine
+    forwards (65 a position at 13 layers); requests 0 and 7 alone on a one-slot engine
     (the batch's tokens); ``Engine.embed`` on a 32-token prompt (the
     chunked SSD form); a decode step's profile; greedy
     speculative decode of tinyllama-1.1b with a 13-layer zamba2 draft; the
@@ -2906,8 +3044,9 @@ def check_hybrid():
     import numpy as np
     from repro_torch.serving.engine import Engine, EngineConfig
     laps, lap = lap_clock()
-    (cfg, params, prompts, args), build = build_arch(HYBRID_ARCH, argv=HYBRID_ARGS)
-    check(hybrid_per_forward(cfg) == 403,
+    (cfg, params, prompts, args), build = build_arch(HYBRID_ARCH, argv=HYBRID_ARGS,
+                                                     n_layers=HYBRID_LAYERS)
+    check(hybrid_per_forward(cfg) == 65,
           f"{HYBRID_ARCH}: {hybrid_per_forward(cfg)} qgemm launches a position")
     lap("build")
     probes = hybrid_row_probes(cfg)
@@ -2922,7 +3061,8 @@ def check_hybrid():
               f"{HYBRID_ARCH}: token out of vocab")
         check(stats["cache"]["backend"] == "recurrent", f"{HYBRID_ARCH}: not on the "
               f"recurrent store")
-        check_hybrid_launches(f"{HYBRID_ARCH} recurrent", cfg, stats, run[2])
+        check_recurrent_launches(f"{HYBRID_ARCH} recurrent", stats, run[2],
+                                 hybrid_per_forward(cfg))
         runs.append(run)
         launches.append(run[2])
     check([r.tokens for r in runs[0][0]] == [r.tokens for r in runs[1][0]],
@@ -2955,7 +3095,8 @@ def check_hybrid():
     spec, spec_launches = hybrid_draft_speculative(prompts, args)
     launches.append(spec_launches)
     lap("speculative")
-    reference = check_reference_hybrid(HYBRID_REFERENCE_LAYERS)
+    reference = check_reference_recurrent(HYBRID_ARCH, HYBRID_REFERENCE_LAYERS,
+                                          HYBRID_REFERENCE)
     lap("reference")
     total = {k: sum(l[k] for l in launches) for k in launches[0]}
     return total, {"seconds": laps, "arch": HYBRID_ARCH, "n_layers": cfg.n_layers,
@@ -2966,6 +3107,655 @@ def check_hybrid():
                    "decode_profile": profile, "speculative": spec,
                    "reference": reference, "qgemm_per_forward": hybrid_per_forward(cfg),
                    "launches": total}
+
+
+# ------------------------------------------------------------ the xlstm
+
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_ARGS = ["--arch", XLSTM_ARCH, "--quantize", "serve", "--cache-backend", "recurrent",
+              "--slots", "8", "--requests", "8", "--prompt-len", "128", "--gen", "32",
+              "--stagger-steps", "2", "--device", "cuda"]
+XLSTM_ALONE = (0, 7)            # the requests served again alone
+XLSTM_DRAFT_VOCAB = 32000       # tinyllama's: the draft proposes target token ids
+# the draft's traffic: the hybrid's shape (8 requests of 16 + 16 tokens) on
+# tinyllama, for the same reason (each admission replays the draft's decode
+# body over the prompt)
+XLSTM_DRAFT_ARGS = ["--arch", "tinyllama-1.1b", "--quantize", "serve", "--slots", "8",
+                    "--requests", "8", "--prompt-len", "16", "--gen", "16",
+                    "--stagger-steps", "2", "--device", "cuda"]
+XLSTM_REFERENCE_LAYERS = 12     # the full depth
+
+
+def xlstm_per_forward(cfg):
+    """qgemm launches per xlstm forward of one position: the mLSTM's wq,
+    wk, wv, wi, wf, wo_gate and wo and the sLSTM's wz, wi, wf and wo in
+    every pair (wup, wdown and the recurrent R stay float, as the serve
+    predicate leaves them), and the lm_head."""
+    return 11 * (cfg.n_layers // 2) + 1
+
+
+def xlstm_row_probes(cfg):
+    """The contractions of the xlstm decode body, probed at PROBE_ROWS rows,
+    torch's plain forms beside the port's: the mLSTM readout
+    (``einsum("bhpn,bhn->bhp")`` against ssm.readout's tree) and normalizer
+    (``einsum("bhn,bhn->bh")`` against the tree), f32 over hd = 192; the
+    sLSTM's block-diagonal recurrent product, f32 (``einsum("bhp,hpn->bhn")``
+    against a ``matmul_fixed_rows`` call per head, the four gates side by
+    side); the block's float up and down projections, bf16 (``torch.matmul``
+    against ``xlstm.fdot``). The port's forms must keep a row's bits."""
+    import torch
+    from repro_torch.models import layers as L, ssm as SSM, xlstm as XL
+    g = torch.Generator(device="cuda").manual_seed(23)
+    R = max(PROBE_ROWS)
+    H, hd = XL.heads(cfg)
+    D = cfg.d_model
+    bcfg = cfg.replace(dtype="bfloat16")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    q, C, n, hh = randn(R, H, hd), randn(R, H, hd, hd), randn(R, H, hd), randn(R, H, hd)
+    Rw = randn(H, hd, 4 * hd) * hd ** -0.5
+    x = randn(R, D, dtype=torch.bfloat16)
+    wup, wdown = randn(D, 2 * D) * D ** -0.5, randn(D, D) * D ** -0.5
+
+    def fixed_rec(k):
+        return torch.stack([L.matmul_fixed_rows(hh[:k, j], Rw[j], XL.FIXED_ROWS)
+                            for j in range(H)], dim=1)
+    out = {"rows": list(PROBE_ROWS), "readout": {
+        "einsum": rows_invariant(lambda k: torch.einsum("bhpn,bhn->bhp", C[:k], q[:k]),
+                                 PROBE_ROWS),
+        "tree": rows_invariant(lambda k: SSM.readout(q[:k], C[:k]), PROBE_ROWS)},
+        "normalizer": {
+        "einsum": rows_invariant(lambda k: torch.einsum("bhn,bhn->bh", n[:k], q[:k]),
+                                 PROBE_ROWS),
+        "tree": rows_invariant(lambda k: SSM.readout(q[:k], n[:k, :, None, :])[..., 0],
+                               PROBE_ROWS)},
+        "recurrent_product": {
+        "einsum": rows_invariant(lambda k: torch.einsum("bhp,hpn->bhn", hh[:k], Rw),
+                                 PROBE_ROWS),
+        "fixed_rows": rows_invariant(fixed_rec, PROBE_ROWS)},
+        "up_projection": {
+        "torch_matmul": rows_invariant(lambda k: torch.matmul(x[:k], wup.to(x.dtype)),
+                                       PROBE_ROWS),
+        "fixed_rows": rows_invariant(lambda k: XL.fdot(x[:k], wup, bcfg), PROBE_ROWS)},
+        "down_projection": {
+        "torch_matmul": rows_invariant(lambda k: torch.matmul(x[:k], wdown.to(x.dtype)),
+                                       PROBE_ROWS),
+        "fixed_rows": rows_invariant(lambda k: XL.fdot(x[:k], wdown, bcfg), PROBE_ROWS)}}
+    check(torch.allclose(fixed_rec(R), torch.einsum("bhp,hpn->bhn", hh, Rw), rtol=1e-4,
+                         atol=1e-4), "the fixed-row recurrent product is not the einsum's")
+    for probe, form in (("readout", "tree"), ("normalizer", "tree"),
+                        ("recurrent_product", "fixed_rows"), ("up_projection", "fixed_rows"),
+                        ("down_projection", "fixed_rows")):
+        check(all(out[probe][form].values()),
+              f"{probe}: the port's {form} form changes a row's bits with the row count")
+    return out
+
+
+def tinyllama_traffic(argv):
+    """The prompts and arguments of the CLI arguments ``argv`` (prompts
+    drawn as serve_setup draws them, over the arch's vocab), without a
+    build."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(argv)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, get_config(args.arch).vocab, (args.requests, args.prompt_len), dtype=np.int32)
+    return prompts, args
+
+
+def check_xlstm():
+    """xlstm-125m at full width and depth (12 layers: 6 mLSTM/sLSTM pairs)
+    behind the Engine on the recurrent store, built by the streamed build:
+    the decode body's row probes; the xlstm traffic (8 slots; 8 requests of
+    128 + 32 tokens, 2 steps apart: admission replays the decode body once
+    per prompt position) twice, tokens equal and in the vocabulary, qgemm
+    launches held to the forwards (67 a position); requests 0 and 7 alone
+    on a one-slot engine (the batch's tokens); ``Engine.embed`` on request
+    0's prompt (the full-sequence forms); a decode step's profile (qgemm,
+    the mLSTM and sLSTM steps, the rest); greedy speculative decode of
+    tinyllama-1.1b (8 requests of 16 + 16 tokens) with a full-depth xlstm
+    draft whose vocab is tinyllama's; the card against the CPU at full depth
+    (``check_reference_recurrent``, with planted xlstm faults). Returns the
+    launches of the served runs and the summary."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm as XL
+    from repro_torch.serving.engine import Engine, EngineConfig
+    laps, lap = lap_clock()
+    (cfg, params, prompts, args), build = build_arch(XLSTM_ARCH, argv=XLSTM_ARGS)
+    check(xlstm_per_forward(cfg) == 67,
+          f"{XLSTM_ARCH}: {xlstm_per_forward(cfg)} qgemm launches a position")
+    lap("build")
+    probes = xlstm_row_probes(cfg)
+    lap("row_probes")
+    runs, launches = [], []
+    for _ in range(2):
+        run = drive(cfg, params, prompts, args, cache_backend="recurrent")
+        reqs, stats = run[0], run[1]
+        check(all(r.done and len(r.tokens) == args.gen for r in reqs),
+              f"{XLSTM_ARCH}: a request did not finish")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.tokens),
+              f"{XLSTM_ARCH}: token out of vocab")
+        check(stats["cache"]["backend"] == "recurrent", f"{XLSTM_ARCH}: not on the "
+              f"recurrent store")
+        check_recurrent_launches(f"{XLSTM_ARCH} recurrent", stats, run[2],
+                                 xlstm_per_forward(cfg))
+        runs.append(run)
+        launches.append(run[2])
+    check([r.tokens for r in runs[0][0]] == [r.tokens for r in runs[1][0]],
+          f"{XLSTM_ARCH}: a second run of the same traffic gave other tokens")
+    served = served_summary(runs[0])
+    served.update(prefill_wait_s=runs[0][1]["prefill_wait_s"],
+                  admission_s_per_request=runs[0][1]["prefill_wait_s"] / len(prompts),
+                  scan_positions=scan_forwards(runs[0][1], "prefill"),
+                  cache_bytes=runs[0][1]["cache"]["bytes"],
+                  second_run_tok_s=runs[1][1]["sustained_tok_s"])
+    lap("serve_twice")
+    alone = check_batch_invariance([runs[0][0][i] for i in XLSTM_ALONE],
+                                   (cfg, params, prompts, args))
+    alone["requests_alone"] = list(XLSTM_ALONE)
+    lap("batch_invariance")
+    engine = Engine(cfg, params, EngineConfig(max_slots=1, max_seq_len=args.prompt_len
+                                              + args.gen), device=args.device)
+    t0 = time.perf_counter()
+    emb = engine.embed(prompts[0])
+    embed_s = time.perf_counter() - t0
+    engine.close()
+    check(emb["embedding"].shape == (cfg.d_model,) and emb["logits"].shape == (cfg.vocab,)
+          and np.isfinite(emb["embedding"]).all() and np.isfinite(emb["logits"]).all(),
+          f"{XLSTM_ARCH}: Engine.embed gave a bad row")
+    profile = profile_recurrent(cfg, params, (
+        (XL, "mlstm_step", "mlstm_update_and_readout"),
+        (XL, "slstm_step", "slstm_recurrence_and_update")), n=2)
+    lap("embed_and_profile")
+    del params, runs, engine
+    free_device()
+    dcfg = get_config(XLSTM_ARCH).replace(vocab=XLSTM_DRAFT_VOCAB, quantize="serve")
+    tprompts, targs = tinyllama_traffic(XLSTM_DRAFT_ARGS)
+    spec, spec_launches = recurrent_draft_speculative(tprompts, targs, dcfg,
+                                                      xlstm_per_forward(dcfg))
+    launches.append(spec_launches)
+    lap("speculative")
+    reference = check_reference_recurrent(XLSTM_ARCH, XLSTM_REFERENCE_LAYERS,
+                                          XLSTM_REFERENCE)
+    lap("reference")
+    total = {k: sum(l[k] for l in launches) for k in launches[0]}
+    return total, {"seconds": laps, "arch": XLSTM_ARCH, "n_layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "heads": cfg.n_heads, "build": build,
+                   "row_probes": probes, "serve": served, "batch_invariance": alone,
+                   "embed": {"seconds": embed_s, "prompt_tokens": len(prompts[0]),
+                             "argmax": int(np.argmax(emb["logits"]))},
+                   "decode_profile": profile, "speculative": spec,
+                   "reference": reference, "qgemm_per_forward": xlstm_per_forward(cfg),
+                   "launches": total}
+
+
+# ------------------------------------------------------------- the vlm
+
+VLM_ARCH = "qwen2-vl-2b"
+VLM_ROWS = 8
+VLM_GRID = 16                  # a 16 x 16 patch grid: 256 patch embeddings a row
+VLM_STEPS = 32                 # text decode steps after the image
+VLM_F32_STEPS = 8              # the kernel route held to plain at f32
+VLM_ROUTES = ("contiguous", "native_plain", "native_kernel")
+
+
+def vlm_inputs(cfg, rows, grid, seed):
+    """``rows`` rows of grid x grid patch embeddings N(0, 1) and their
+    (t, h, w) M-RoPE position ids: t a seeded frame index per row, h and w
+    the patch's place in the grid; on the card, from a CPU generator."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    P = grid * grid
+    embeds = torch.randn((rows, P, cfg.d_model), generator=gen)
+    t = torch.randint(0, 4, (rows, 1), generator=gen).expand(rows, P)
+    i = torch.arange(P)
+    p3 = torch.stack([t, (i // grid).expand(rows, P), (i % grid).expand(rows, P)])
+    return embeds.cuda(), p3.to(torch.int32).cuda()
+
+
+def vlm_run(params, cfg, embeds, p3, n_steps, route, feed=None):
+    """One vlm request batch on a store route (VLM_ROUTES): the fused
+    prefill over the patch embeddings as that route's engine would run it
+    (each query a one-query decode row of the store's length; through the
+    paged-attention kernel on the kernel route), the K/V written into the
+    leased slots, then ``n_steps`` text decode steps (contiguous, or
+    block-native plain or through the kernel), each fed its greedy tokens
+    or ``feed[i]``, M-RoPE positions the index on all three sections.
+    Every kernel's launches counted from 0. Returns a dict: the prefill's
+    last-position logits, each step's logits, the fed tokens, the cache
+    view, the launches, the prefill and step host times, and ``step``,
+    which runs one more decode step (the store keeps room for 16). On CPU
+    tensors the kernel route runs the kernels' plain versions."""
+    import torch
+    from repro_torch.models import attention as A, serve as SV
+    from repro_torch.serving.store import ContiguousKVStore, PagedKVStore
+    B, P = embeds.shape[:2]
+    dev = embeds.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    length = _store_length(P, n_steps)
+    if route == "contiguous":
+        store = ContiguousKVStore(cfg, B, length, device=dev)
+    else:
+        store = PagedKVStore(cfg, B, length, block_size=16, native=True, device=dev)
+    for b in range(B):
+        check(store.lease(b, P, n_steps + 1), f"vlm {route}: lease refused")
+    kernel = route == "native_kernel"
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    logits, kv = SV.prefill_with_cache(params, cfg, None,
+                                       A.DecodeRows(length, 16 if kernel else None),
+                                       embeds=embeds, positions3=p3)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    store.write_slots(list(range(B)), kv, [P] * B)
+    del kv
+    state = {"toks": logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]}
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def step():
+        if route == "contiguous":
+            out, cache = SV.decode(params, cfg, store.decode_cache(), state["toks"])
+        else:
+            out, cache = SV.decode_paged(params, cfg, store.decode_cache(), state["toks"],
+                                         use_kernel=kernel, active=active)
+        store.swap(cache)
+        state["toks"] = out[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+        return out[:, -1]
+    steps, fed, step_s = [], [], []
+    for i in range(n_steps):
+        if feed is not None:
+            state["toks"] = feed[i].to(dev)
+        fed.append(state["toks"].cpu())
+        t0 = time.perf_counter()
+        steps.append(step())
+        sync()
+        step_s.append(time.perf_counter() - t0)
+    return {"prefill": logits[:, -1], "steps": steps, "fed": fed,
+            "view": clone_tree(store.gather_view()),
+            "launches": {k: c.launches for k, c in counters.items()},
+            "prefill_s": prefill_s, "step_s": step_s, "step": step}
+
+
+def check_vlm():
+    """qwen2-vl-2b at full width and depth (28 layers, 12/2 heads of hd 128,
+    M-RoPE sections (16, 24, 24)), streamed W8A8 build: 8 rows of 256 patch
+    embeddings over a 16 x 16 grid (``vlm_inputs``) prefilled with their
+    (t, h, w) positions into a contiguous store, a block-native paged store
+    without the kernel and one with the kernel, then 32 text decode steps
+    on each (``vlm_run``): contiguous and paged-plain bitwise in tokens and
+    in every valid cache entry; qgemm 197 launches per forward (7 a layer
+    and the lm_head) and paged attention 28 per forward on the kernel route
+    only; the kernel route held to paged-plain in the f32 compute dtype
+    (prefill and VLM_F32_STEPS steps fed plain's tokens): the prefill by
+    check_reference's rule, each decode step by ``hold_relative`` against
+    paged-plain with its input embeddings moved one ulp (28 W8A8 layers
+    over 256 cached positions carry a moved int8 code on, so a decode step
+    can leave the fixed rule where the prefill held it); ``apply_mrope`` card against CPU; a decode step's profile on
+    the kernel route; the card against the CPU at REFERENCE_LAYERS layers
+    (the kernel route, prefill and 3 steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+    laps, lap = lap_clock()
+    (cfg, params, _, _), build = build_arch(VLM_ARCH)
+    check(per_forward(cfg) == 197, f"{VLM_ARCH}: {per_forward(cfg)} qgemm launches a forward")
+    embeds, p3 = vlm_inputs(cfg, VLM_ROWS, VLM_GRID, seed=31)
+    lap("build")
+    runs, out, launches = {}, {}, []
+    for route in VLM_ROUTES:
+        r = vlm_run(params, cfg, embeds, p3, VLM_STEPS, route)
+        forwards = 1 + VLM_STEPS
+        check(r["launches"]["qgemm"] == per_forward(cfg) * forwards,
+              f"vlm {route}: qgemm launched {r['launches']['qgemm']} times, expected "
+              f"{per_forward(cfg)} x {forwards}")
+        want = forwards * cfg.n_layers if route == "native_kernel" else 0
+        check(r["launches"]["paged_decode_attention"] == want,
+              f"vlm {route}: paged attention launched "
+              f"{r['launches']['paged_decode_attention']} times, expected {want}")
+        toks = torch.cat(r["fed"] + [r["steps"][-1].float().argmax(-1).to(
+            torch.int32)[:, None].cpu()], dim=1)
+        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"vlm {route}: token out of "
+              f"vocab")
+        check(all(bool(torch.isfinite(s.float()).all()) for s in r["steps"]),
+              f"vlm {route}: non-finite logits")
+        runs[route] = (toks, r["view"])
+        out[route] = {"prefill_s": r["prefill_s"],
+                      "decode_step_ms_median": 1e3 * float(np.median(r["step_s"])),
+                      "launches": r["launches"]}
+        launches.append(r["launches"])
+        if route == "native_kernel":
+            for _ in range(2):
+                r["step"]()
+            wall_ms, prof = measure_steps(r["step"], 2)
+            busy_ms, top = device_time(prof, 2, 8)
+            check(busy_ms > 0, "vlm: the decode profile holds no device time")
+            out["decode_profile"] = {
+                "decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+                "idle_share": 1 - busy_ms / wall_ms,
+                "qgemm_ms_per_step": device_time(prof, 2, 0, "qgemm")[0],
+                "paged_attention_ms_per_step": device_time(prof, 2, 0, "paged_attention")[0],
+                "top_kernels_ms_per_step": top}
+        del r
+    check(torch.equal(runs["contiguous"][0], runs["native_plain"][0]),
+          "vlm: paged-plain gave other tokens than contiguous")
+    same_valid_entries("vlm native_plain vs contiguous", runs["native_plain"][1],
+                       runs["contiguous"][1], runs["contiguous"][1]["index"])
+    out["contiguous_native_plain_bitwise"] = True
+    lap("routes")
+    f32 = cfg.replace(dtype="float32")
+    plain = vlm_run(params, f32, embeds, p3, VLM_F32_STEPS, "native_plain")
+    kern = vlm_run(params, f32, embeds, p3, VLM_F32_STEPS, "native_kernel",
+                   feed=plain["fed"])
+    nudged = vlm_run(params, f32, torch.nextafter(embeds, torch.full_like(
+        embeds, float("inf"))), p3, VLM_F32_STEPS, "native_plain", feed=plain["fed"])
+    out["kernel_vs_plain"] = {"dtype": "float32", "prefill": hold_card_to_cpu(
+        "vlm kernel vs plain prefill", kern["prefill"], plain["prefill"].cpu())}
+    for i, (k, p, n) in enumerate(zip(kern["steps"], plain["steps"], nudged["steps"])):
+        out["kernel_vs_plain"][f"decode{i}"] = hold_relative(
+            f"vlm kernel vs plain decode{i}", k, p, n)
+    del plain, kern, nudged
+    lap("kernel_vs_plain")
+    x = torch.randn((VLM_ROWS, VLM_GRID ** 2, cfg.n_heads, cfg.hd), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    mrope = {}
+    for dt in (torch.float32, torch.bfloat16):
+        g = L.apply_mrope(x.to(dt), p3, cfg.rope_theta, cfg.mrope_sections).float().cpu()
+        c = L.apply_mrope(x.to(dt).cpu(), p3.cpu(), cfg.rope_theta,
+                          cfg.mrope_sections).float()
+        d = (g - c).abs()
+        # f32: within 16 f32 ulps of the largest value (cos and sin differ
+        # in their last bits, then a product and a sum); bf16: within one
+        # bf16 ulp of each value (a rounding moved by that f32 difference)
+        if dt == torch.float32:
+            holds = float(d.max()) <= 16 * 2 ** -23 * float(c.abs().max())
+        else:
+            holds = bool((d <= 2 ** -7 * c.abs() + 1e-5).all())
+        check(holds, f"apply_mrope {dt} card vs CPU: max diff {float(d.max())}")
+        mrope[str(dt).split(".")[1]] = {"max_abs_diff": float(d.max()),
+                                        "abs_max": float(c.abs().max())}
+    lap("mrope")
+    profile = out.pop("decode_profile")
+    del params
+    free_device()
+    reference = check_reference_vlm(REFERENCE_LAYERS)
+    lap("reference")
+    total = {k: sum(l[k] for l in launches) for k in launches[0]}
+    return total, {"seconds": laps, "arch": VLM_ARCH, "n_layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
+                   "hd": cfg.hd, "rows": VLM_ROWS, "patches": VLM_GRID ** 2,
+                   "decode_steps": VLM_STEPS, "build": build, "routes": out,
+                   "decode_profile": profile, "mrope_card_vs_cpu": mrope,
+                   "reference": reference, "qgemm_per_forward": per_forward(cfg),
+                   "launches": total}
+
+
+def hold_relative(name, g, c, n):
+    """The relative rule of ``check_reference_recurrent``'s run on one set
+    of logits: ``g`` against ``c`` at most SENSITIVITY_FACTOR times the
+    spread of ``n`` (``c``'s computation with every input entry moved by
+    one f32 ulp) in max and RMS difference, that spread within
+    SENSITIVITY_CAP of ``c``'s absolute max, and the same greedy token
+    wherever ``c``'s top-2 margin exceeds CLEAR_MARGIN. Whether the fixed
+    rule held is reported."""
+    import torch
+    g, c, n = (t.float().cpu() for t in (g, c, n))
+    check(bool(torch.isfinite(g).all()), f"non-finite {name} logits")
+    scale = float(c.abs().max())
+    got = {"max_abs_diff": float((g - c).abs().max()),
+           "rms_diff": float((g - c).pow(2).mean().sqrt())}
+    sens = {"max_abs_diff": float((n - c).abs().max()),
+            "rms_diff": float((n - c).pow(2).mean().sqrt())}
+    check(sens["max_abs_diff"] <= SENSITIVITY_CAP[0] * scale
+          and sens["rms_diff"] <= SENSITIVITY_CAP[1] * scale,
+          f"{name}: the one-ulp spread {sens} exceeds {SENSITIVITY_CAP} of the logits' "
+          f"absolute max {scale}: too chaotic for a relative bound")
+    check(all(got[k] <= SENSITIVITY_FACTOR * sens[k] for k in got),
+          f"{name}: {got} above {SENSITIVITY_FACTOR} x the one-ulp spread {sens}")
+    top2 = c.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > CLEAR_MARGIN
+    check(torch.equal(g.argmax(-1)[clear], c.argmax(-1)[clear]),
+          f"{name}: different clear greedy tokens")
+    return {**got, "abs_max": scale, "clear_tokens_compared": int(clear.sum()),
+            "one_ulp_input_sensitivity": sens,
+            "fixed_rule_holds": within_fixed_rule(rule_fractions(g, c))}
+
+
+def check_reference_vlm(n_layers, grid=8, n_steps=3):
+    """qwen2-vl-2b at full width and ``n_layers`` layers on the card (the
+    kernel route) against the same model on the CPU (the kernels' plain
+    versions), same weights and inputs, f32 compute dtype: 2 rows of grid x
+    grid patch embeddings prefilled, then ``n_steps`` decode steps fed the
+    CPU's greedy tokens, each held by check_reference's rule."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import quant_predicate
+    from repro_torch.models.model import init_model_quantized
+    cfg = get_config(VLM_ARCH).replace(quantize="serve", dtype="float32", n_layers=n_layers)
+    params = init_model_quantized(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  quant_predicate, device="cuda")
+    embeds, p3 = vlm_inputs(cfg, 2, grid, seed=33)
+    cpu = vlm_run(_to_cpu(params), cfg, embeds.cpu(), p3.cpu(), n_steps, "native_kernel")
+    card = vlm_run(params, cfg, embeds, p3, n_steps, "native_kernel", feed=cpu["fed"])
+    out = {"arch": VLM_ARCH, "n_layers": n_layers, "patches": grid * grid,
+           "prefill": hold_card_to_cpu("vlm prefill", card["prefill"], cpu["prefill"])}
+    for i, (g, c) in enumerate(zip(card["steps"], cpu["steps"])):
+        out[f"decode{i}"] = hold_card_to_cpu(f"vlm decode{i}", g, c)
+    del params, card
+    free_device()
+    return out
+
+
+# ---------------------------------------------------------- the encdec
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_ROWS = 8
+ENCDEC_TOKENS = 256            # decoder tokens; the encoder reads tokens / 4 frames
+ENCDEC_STEPS = 32
+
+
+def encdec_per_forward(cfg):
+    """qgemm launches per encdec forward: q, k, v, o and the GeLU MLP's wi,
+    wo in every encoder layer (6); the self-attention's four, the cross
+    attention's q, o and its K/V projections of the encoder's output, and
+    the MLP's two in every decoder layer (10); the lm_head."""
+    return 6 * cfg.n_enc_layers + 10 * cfg.n_layers + 1
+
+
+def encdec_per_step(cfg):
+    """qgemm launches per encdec decode step: the self-attention's four,
+    the cross attention's q and o (its K/V are the cross cache's) and the
+    MLP's two in every decoder layer, and the lm_head."""
+    return 8 * cfg.n_layers + 1
+
+
+def encdec_inputs(cfg, rows, n_tokens, seed):
+    """``rows`` rows of ``n_tokens`` decoder tokens and n_tokens /
+    enc_len_ratio frame embeddings N(0, 1), on the card, from a CPU
+    generator."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (rows, n_tokens), generator=gen, dtype=torch.int32)
+    frames = torch.randn((rows, n_tokens // cfg.enc_len_ratio, cfg.d_model), generator=gen)
+    return tokens.cuda(), frames.cuda()
+
+
+def check_padded_vocab(name, cfg, logits):
+    """The padded vocab columns read below -1e29 and never win an argmax;
+    the real columns are finite."""
+    import torch
+    check(bool(torch.isfinite(logits[..., :cfg.vocab].float()).all()),
+          f"{name}: non-finite logits")
+    check(bool((logits[..., cfg.vocab:].float() < -1e29).all()),
+          f"{name}: a padded vocab column reads above -1e29")
+    check(bool((logits.float().argmax(-1) < cfg.vocab).all()),
+          f"{name}: a padded vocab column won an argmax")
+
+
+def encdec_decode(params, cfg, tokens, n_steps, feed=None):
+    """``n_steps`` decode steps of the encdec from a fresh scalar-index
+    cache of ``tokens.shape[1] + n_steps`` positions, the first fed
+    ``tokens[:, :1]``, each later one its greedy tokens (or ``feed[i]``).
+    The cross cache stays as ``init_cache`` makes it, zero, as in the
+    reference. Returns each step's logits, the fed tokens, the step host
+    times and ``step`` (one more decode step)."""
+    import torch
+    from repro_torch.models import serve as SV
+    B = tokens.shape[0]
+    state = {"cache": SV.init_cache(cfg, B, tokens.shape[1] + n_steps + 8,
+                                    device=tokens.device),
+             "toks": tokens[:, :1]}
+
+    def step():
+        out, state["cache"] = SV.decode(params, cfg, state["cache"], state["toks"])
+        state["toks"] = out[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+        return out[:, -1]
+    steps, fed, step_s = [], [], []
+    for i in range(n_steps):
+        if feed is not None:
+            state["toks"] = feed[i].to(tokens.device)
+        fed.append(state["toks"].cpu())
+        t0 = time.perf_counter()
+        steps.append(step())
+        if tokens.is_cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return steps, fed, step_s, step
+
+
+def check_encdec():
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d_model 1024, 16 heads, LayerNorm, GeLU, vocab 256206
+    padded to 256208), streamed W8A8 build: ``forward`` over 8 rows of 256
+    decoder tokens and 64 frame embeddings (qgemm 193 launches: 6 an
+    encoder layer, 10 a decoder layer, the lm_head), the two padded vocab
+    columns below -1e29 and never an argmax; the encoder's first attention
+    in the online-softmax form (chunks of 16 and 48) against the plain
+    form in f32; 32 decode steps on the encdec cache (qgemm 97 a step, no
+    paged attention); a decode step's profile; the card against the CPU at
+    REFERENCE_LAYERS encoder and decoder layers."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention as A, layers as L, model as M
+    laps, lap = lap_clock()
+    (cfg, params, _, _), build = build_arch(ENCDEC_ARCH)
+    check(encdec_per_forward(cfg) == 193 and cfg.vocab_padded == cfg.vocab + 2,
+          f"{ENCDEC_ARCH}: {encdec_per_forward(cfg)} qgemm launches a forward, vocab "
+          f"{cfg.vocab} padded to {cfg.vocab_padded}")
+    tokens, frames = encdec_inputs(cfg, ENCDEC_ROWS, ENCDEC_TOKENS, seed=41)
+    lap("build")
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = M.forward(params, cfg, tokens, embeds=frames)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    fwd_launches = {k: c.launches for k, c in counters.items()}
+    check(fwd_launches["qgemm"] == encdec_per_forward(cfg)
+          and fwd_launches["paged_decode_attention"] == 0,
+          f"{ENCDEC_ARCH}: forward launches {fwd_launches}")
+    check(tuple(logits.shape) == (ENCDEC_ROWS, ENCDEC_TOKENS, cfg.vocab_padded),
+          f"{ENCDEC_ARCH}: forward logits {tuple(logits.shape)}")
+    check_padded_vocab(f"{ENCDEC_ARCH} forward", cfg, logits)
+    padded = {"padded_columns": cfg.vocab_padded - cfg.vocab,
+              "padded_max": float(logits[..., cfg.vocab:].float().max()),
+              "real_min": float(logits[..., :cfg.vocab].float().min())}
+    del logits
+    lap("forward")
+    f32 = cfg.replace(dtype="float32")
+    lp = M.layer_params(params["encoder"], 0)
+    Se = frames.shape[1]
+    pos = torch.arange(Se, dtype=torch.int32, device="cuda").expand(ENCDEC_ROWS, Se)
+    q, k, v = A._project_qkv(lp["attn"], L.apply_norm(lp["ln1"], frames, f32), f32, pos)
+    plain = A._plain_attention(q, k, v, causal=False)
+    chunked = {}
+    for chunk in (16, 48):
+        d = float((A._chunked_attention(q, k, v, False, chunk) - plain).abs().max())
+        chunked[chunk] = d
+        check(d <= 1e-5 * float(plain.abs().max()) + 1e-6,
+              f"{ENCDEC_ARCH}: chunked attention (chunk {chunk}) differs from plain by {d}")
+    lap("attention_forms")
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
+    steps, fed, step_s, step = encdec_decode(params, cfg, tokens, ENCDEC_STEPS)
+    dec_launches = {k: c.launches for k, c in counters.items()}
+    check(dec_launches["qgemm"] == encdec_per_step(cfg) * ENCDEC_STEPS
+          and dec_launches["paged_decode_attention"] == 0,
+          f"{ENCDEC_ARCH}: decode launches {dec_launches}, expected qgemm "
+          f"{encdec_per_step(cfg)} x {ENCDEC_STEPS}")
+    for i, s in enumerate(steps):
+        check_padded_vocab(f"{ENCDEC_ARCH} decode{i}", cfg, s)
+    for _ in range(2):
+        step()
+    wall_ms, prof = measure_steps(step, 2)
+    busy_ms, top = device_time(prof, 2, 8)
+    check(busy_ms > 0, "encdec: the decode profile holds no device time")
+    profile = {"decode_step_wall_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+               "idle_share": 1 - busy_ms / wall_ms,
+               "qgemm_ms_per_step": device_time(prof, 2, 0, "qgemm")[0],
+               "top_kernels_ms_per_step": top}
+    lap("decode_and_profile")
+    del params, steps, step
+    free_device()
+    reference = check_reference_encdec(REFERENCE_LAYERS)
+    lap("reference")
+    launches = {k: fwd_launches[k] + dec_launches[k] for k in fwd_launches}
+    return launches, {
+        "seconds": laps, "arch": ENCDEC_ARCH, "n_enc_layers": cfg.n_enc_layers,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "rows": ENCDEC_ROWS, "tokens": ENCDEC_TOKENS, "frames": ENCDEC_TOKENS // 4,
+        "build": build, "forward_s": forward_s, "forward_launches": fwd_launches,
+        "padded_vocab": padded, "chunked_vs_plain_max_abs_diff": chunked,
+        "decode": {"steps": ENCDEC_STEPS,
+                   "decode_step_ms_median": 1e3 * float(np.median(step_s)),
+                   "launches": dec_launches},
+        "decode_profile": profile, "reference": reference,
+        "qgemm_per_forward": encdec_per_forward(cfg),
+        "qgemm_per_step": encdec_per_step(cfg), "launches": launches}
+
+
+def check_reference_encdec(n_layers, n_tokens=64, n_steps=3):
+    """seamless-m4t-medium at full width with ``n_layers`` encoder and
+    decoder layers on the card against the same model on the CPU (plain
+    versions), same weights and inputs, f32 compute dtype: the forward over
+    2 rows of ``n_tokens`` tokens and their frames, then ``n_steps`` decode
+    steps fed the CPU's greedy tokens, each held by check_reference's rule
+    over the real vocab columns (the padded two read -1e30)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import quant_predicate
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_model_quantized
+    cfg = get_config(ENCDEC_ARCH).replace(quantize="serve", dtype="float32",
+                                          n_layers=n_layers, n_enc_layers=n_layers)
+    params = init_model_quantized(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  quant_predicate, device="cuda")
+    tokens, frames = encdec_inputs(cfg, 2, n_tokens, seed=43)
+    cpu_params = _to_cpu(params)
+    V = cfg.vocab
+    c_fwd = M.forward(cpu_params, cfg, tokens.cpu(), embeds=frames.cpu())[0][..., :V]
+    g_fwd = M.forward(params, cfg, tokens, embeds=frames)[0][..., :V]
+    out = {"arch": ENCDEC_ARCH, "n_layers": n_layers, "n_enc_layers": n_layers,
+           "forward": hold_card_to_cpu("encdec forward", g_fwd, c_fwd)}
+    del c_fwd, g_fwd
+    c_steps, fed, _, _ = encdec_decode(cpu_params, cfg, tokens.cpu(), n_steps)
+    g_steps = encdec_decode(params, cfg, tokens, n_steps, feed=fed)[0]
+    for i, (g, c) in enumerate(zip(g_steps, c_steps)):
+        out[f"decode{i}"] = hold_card_to_cpu(f"encdec decode{i}", g[..., :V], c[..., :V])
+    del params
+    free_device()
+    return out
 
 
 # ------------------------------------------------------ the GPTPU path
@@ -3310,6 +4100,12 @@ def main() -> int:
         phase("dense_configs", card=card, **dense)
         hybrid_launches, hybrid = check_hybrid()
         phase("hybrid", card=card, **hybrid)
+        xlstm_launches, xlstm = check_xlstm()
+        phase("xlstm", card=card, **xlstm)
+        vlm_launches, vlm = check_vlm()
+        phase("vlm", card=card, **vlm)
+        encdec_launches, encdec = check_encdec()
+        phase("encdec", card=card, **encdec)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3326,7 +4122,8 @@ def main() -> int:
                "speculative": spec_launches, "fleet": fleet_launches,
                "gptpu": gptpu["launches"], "ops": ops_launches,
                "moe": moe_launches, "dense_configs": dense_launches,
-               "hybrid": hybrid_launches}
+               "hybrid": hybrid_launches, "xlstm": xlstm_launches, "vlm": vlm_launches,
+               "encdec": encdec_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape
 

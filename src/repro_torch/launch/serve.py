@@ -8,14 +8,17 @@ continuous-batching engine with the Tensorizer W8A8 path.
 ``--arch`` takes every ported config (repro_torch.configs.ARCH_IDS): the
 dense tinyllama-1.1b, qwen3-14b (qk_norm), starcoder2-15b (LayerNorm,
 GeLU) and granite-20b (MQA), the MoE deepseek-moe-16b and
-moonshot-v1-16b-a3b, and the hybrid zamba2-7b (Mamba2 layers and a shared
-attention block), which serves on ``--cache-backend recurrent`` (what
-``auto`` picks for it) and can be the ``--draft-config`` of a dense or MoE
-target.
+moonshot-v1-16b-a3b, and the recurrent zamba2-7b (hybrid: Mamba2 layers
+and a shared attention block) and xlstm-125m (ssm: mLSTM/sLSTM pairs),
+which serve on ``--cache-backend recurrent`` (what ``auto`` picks for them)
+and can be the ``--draft-config`` of a dense or MoE target.
+seamless-m4t-medium (encdec) and qwen2-vl-2b (vlm) read precomputed
+embeddings and are refused, with the reference's message.
 
 ``--cache-backend contiguous`` leases per-slot rows sized to the sequence
 budget; ``recurrent`` per-slot state rows (the hybrid's conv and ssm states
-beside its shared attention's K/V), admitted by a masked replay of the
+beside its shared attention's K/V, the xlstm's mLSTM and sLSTM states),
+admitted by a masked replay of the
 decode body; ``paged`` leases blocks from a pool, decoded through the gather
 bridge, or block-natively with ``--paged-native`` (plain torch) and
 ``--paged-kernel`` (the paged-attention kernel). ``--prefill-chunk W``
@@ -64,7 +67,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models.model import count_qtensors
 from repro_torch.serving.api import serve_api
-from repro_torch.serving.engine import Engine, EngineConfig, Request
+from repro_torch.serving.engine import SERVED_FAMILIES, Engine, EngineConfig, Request
 from repro_torch.serving.metrics import (
     format_memory_stats, format_router_stats, format_sampling_stats,
     format_spec_stats, format_transport_stats,
@@ -108,7 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-backend", default="auto",
                     choices=["auto", "contiguous", "paged", "recurrent"],
                     help="SlotStore backend (auto: contiguous for dense/moe, "
-                         "recurrent for the hybrid)")
+                         "recurrent for ssm/hybrid)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged backend: tokens per KV block")
     ap.add_argument("--n-blocks", type=int, default=0,
@@ -341,10 +344,16 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
             get_config(arch)
         except ValueError as e:
             ap.error(str(e))
-    family = get_config(args.arch).family
+    arch_cfg = get_config(args.arch)
+    family = arch_cfg.family
     if args.speculative and family not in ("dense", "moe"):
         ap.error(f"--speculative needs a dense-family TARGET arch, got {args.arch} "
                  f"(family={family}); recurrent models can be the draft, not the target")
+    if family not in SERVED_FAMILIES or arch_cfg.input_mode != "tokens":
+        ap.error(f"--arch {args.arch} (family={family}, input_mode="
+                 f"{arch_cfg.input_mode}) is not servable yet: the engine handles "
+                 "token-input dense/moe (contiguous or paged KV) and ssm/hybrid "
+                 "(recurrent-state) archs; encdec/vlm serving is a ROADMAP item")
     device = resolve_device(args.device)
 
     cfg, params = build_model(args.arch, args, device)

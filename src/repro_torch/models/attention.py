@@ -1,8 +1,11 @@
-"""Attention for the serving path: QKV projection, fused and chunked prefill
-that emit cache-layout K/V, contiguous decode, and block-native paged decode.
+"""Attention: QKV projection (RoPE, M-RoPE, qk_norm), fused and chunked
+prefill that emit cache-layout K/V, contiguous decode, block-native paged
+decode, the full-sequence attention of the encoder-decoder (plain and
+online-softmax chunked, causal, bidirectional and cross) and its cross
+decode step.
 
-The port of ``repro.models.attention``'s serving subset (RoPE, qk_norm),
-float and int8 KV, with the speculative verify window (``verify_decode_attention``,
+The port of ``repro.models.attention``, float and int8 KV, with the
+speculative verify window (``verify_decode_attention``,
 ``paged_verify_attention``).
 Every score and value contraction runs in f32 against the cache-dtype K/V
 (int8 entries dequantized first, exactly as decode reads them back), the
@@ -43,22 +46,43 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, d: int, device=None) -> Dic
     return p
 
 
-def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def _rotate(t: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+            positions3: Optional[torch.Tensor]) -> torch.Tensor:
+    """q or k (B, S, heads, hd) rotated by the config's position encoding:
+    RoPE at ``positions`` (B, S), M-RoPE at ``positions3`` (3, B, S), or
+    none."""
+    if cfg.rope_kind == "mrope":
+        if positions3 is None:
+            raise ValueError("mrope requires (3, B, S) positions3")
+        return L.apply_mrope(t, positions3, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.rope_kind == "rope":
+        return L.apply_rope(t, positions, cfg.rope_theta)
+    if cfg.rope_kind != "none":
+        raise ValueError(f"rope_kind {cfg.rope_kind!r}: expected rope, mrope or none")
+    return t
+
+
+def _project_q(p: Dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+               positions3: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = L.pdot(x, p["wq"], cfg).reshape(B, S, H, hd)
-    k = L.pdot(x, p["wk"], cfg).reshape(B, S, KV, hd)
-    v = L.pdot(x, p["wv"], cfg).reshape(B, S, KV, hd)
-    if cfg.rope_kind != "rope":
-        raise ValueError(f"rope_kind {cfg.rope_kind!r} is not ported yet, only plain "
-                         f"RoPE (M-RoPE: ROADMAP queue 1 item 11)")
+    q = L.pdot(x, p["wq"], cfg).reshape(B, S, cfg.n_heads, cfg.hd)
     if cfg.qk_norm:
         q = L.rms_head_norm(q, p["q_norm"])
+    return _rotate(q, cfg, positions, positions3)
+
+
+def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                 positions3: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """q (B, S, H, hd), k and v (B, S, KV, hd): the projections, qk_norm,
+    then the position encoding of q and k."""
+    B, S, _ = x.shape
+    KV, hd = cfg.n_kv, cfg.hd
+    q = _project_q(p, x, cfg, positions, positions3)
+    k = L.pdot(x, p["wk"], cfg).reshape(B, S, KV, hd)
+    v = L.pdot(x, p["wv"], cfg).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
         k = L.rms_head_norm(k, p["k_norm"])
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, _rotate(k, cfg, positions, positions3), v
 
 
 def _quantize_kv(k_new: torch.Tensor, v_new: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -218,7 +242,9 @@ def _out(p: Dict, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def prefill_attention_with_kv(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-                              positions: torch.Tensor, int8_kv: bool = False,
+                              positions: torch.Tensor,
+                              positions3: Optional[torch.Tensor] = None,
+                              int8_kv: bool = False,
                               decode_rows: Optional[DecodeRows] = None
                               ) -> Tuple[torch.Tensor, ...]:
     """Full-sequence causal attention that also returns this layer's K/V rows
@@ -227,8 +253,9 @@ def prefill_attention_with_kv(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     int8-KV path (scales (B, S, KV)). Attends against the cache-dtype K/V,
     the same math decode reads back, each query as a one-query decode
     contraction (:func:`_decode_rows`) of ``decode_rows``, by default the
-    plain one over the S prefill positions."""
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    plain one over the S prefill positions. M-RoPE configs take
+    ``positions3`` (3, B, S); the causal mask reads ``positions``."""
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, positions3)
     if int8_kv:
         entries = _quantize_kv(k_new, v_new)
         k = _dequant(entries[0], entries[2], x.dtype)
@@ -279,6 +306,122 @@ def chunked_prefill_attention_with_kv(
 
 
 # ---------------------------------------------------------------------------
+# full-sequence attention: the encoder-decoder's encoder, decoder and cross
+# ---------------------------------------------------------------------------
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: each KV head repeated for its query heads, (B, S, KV, hd) ->
+    (B, S, H, hd)."""
+    rep = n_heads // k.shape[2]
+    return torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
+
+
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool) -> torch.Tensor:
+    """Materialized scores, as the reference's: the q . k product in the
+    compute dtype (an f32 sum rounded once to it), scaled and softmaxed in
+    f32, the weights cast to v's dtype, the value product rounded to it.
+    q (B, Sq, H, hd), k and v (B, Sk, H, hd)."""
+    Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    f32 = torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)).to(q.dtype).to(f32)
+    s = s * (hd ** -0.5)
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(f32), v.to(f32)).to(v.dtype)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, chunk: int) -> torch.Tensor:
+    """The online-softmax scan over K/V chunks of ``chunk`` positions, all
+    in f32 (the reference's ``impl="f32"``): per chunk the scores of the
+    pre-scaled queries, the running max ``m``, the rescaled sum ``l`` and
+    output ``o``; then ``o / max(l, 1e-30)`` cast to q's dtype. K/V are
+    zero-padded to whole chunks, the padding masked."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    f32 = torch.float32
+    n_chunks = -(-Sk // chunk)
+    pad = n_chunks * chunk - Sk
+    if pad:
+        k = torch.cat([k, k.new_zeros((B, pad, H, hd))], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad, H, hd))], dim=1)
+    qf = q.to(f32) * (hd ** -0.5)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, H, Sq, 1), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, Sq, 1), dtype=f32, device=q.device)
+    o = torch.zeros((B, Sq, H, hd), dtype=f32, device=q.device)
+    for c in range(n_chunks):
+        kb, vb = (t[:, c * chunk:(c + 1) * chunk].to(f32) for t in (k, v))
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        kpos = c * chunk + torch.arange(chunk, device=q.device)[None, :]
+        mask = (kpos < Sk) if not causal else ((kpos <= qpos) & (kpos < Sk))
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = (o * corr[..., 0].transpose(1, 2)[..., None]
+             + torch.einsum("bhqk,bkhd->bqhd", p, vb))
+        m = m_new
+    o = o / torch.clamp_min(l[..., 0].transpose(1, 2)[..., None], 1e-30)
+    return o.to(q.dtype)
+
+
+def attention(p: Dict, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
+              positions3: Optional[torch.Tensor] = None, causal: bool = True,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """Full-sequence attention, the reference's ``attention``: x (B, S, D)
+    projected, its K/V (or ``kv``, the cross-attention's K/V from
+    :func:`project_kv_for_cross`, which makes it non-causal) expanded to
+    the query heads, then the plain form, or the online-softmax form when
+    ``max(S, Sk)`` exceeds ``cfg.attn_chunk``. Returns (B, S, D)."""
+    B, S, _ = x.shape
+    if kv is None:
+        q, k, v = _project_qkv(p, x, cfg, positions, positions3)
+    else:
+        q, (k, v) = _project_q(p, x, cfg, positions, positions3), kv
+        causal = False
+    k, v = _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+    if max(S, k.shape[1]) > cfg.attn_chunk:
+        if cfg.attn_impl != "f32":
+            raise ValueError(f"attn_impl {cfg.attn_impl!r}: the port runs the f32 "
+                             f"online softmax")
+        o = _chunked_attention(q, k, v, causal, cfg.attn_chunk)
+    else:
+        o = _plain_attention(q, k, v, causal)
+    return _out(p, o, cfg)
+
+
+def project_kv_for_cross(p: Dict, enc_out: torch.Tensor,
+                         cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's K/V (B, Se, KV, hd) from the encoder's output:
+    the wk and wv projections, no position encoding."""
+    B, S, _ = enc_out.shape
+    k = L.pdot(enc_out, p["wk"], cfg).reshape(B, S, cfg.n_kv, cfg.hd)
+    v = L.pdot(enc_out, p["wv"], cfg).reshape(B, S, cfg.n_kv, cfg.hd)
+    return k, v
+
+
+def cross_decode_attention(p: Dict, x: torch.Tensor, cross_k: torch.Tensor,
+                           cross_v: torch.Tensor, positions: torch.Tensor,
+                           cfg: ArchConfig) -> torch.Tensor:
+    """The encdec decode step's cross-attention: the query of x (B, 1, D)
+    at ``positions`` (B, 1) attends every position of the cross cache rows
+    (B, Se, KV, hd), which it does not write: the reference's
+    ``decode_attention(..., index=Se - 1, update_cache=False)``, whose K/V
+    projections of x are dropped, so none is made here. Decode's one-query
+    contraction. Returns (B, 1, D)."""
+    q = _project_q(p, x, cfg, positions)
+    valid = torch.ones((1, 1, 1, cross_k.shape[1]), dtype=torch.bool, device=x.device)
+    o = _attend(q, *_layout(cross_k, cross_v), valid, cfg, x.dtype)
+    return _out(p, o, cfg)
+
+
+# ---------------------------------------------------------------------------
 # KV cache + decode
 # ---------------------------------------------------------------------------
 
@@ -320,20 +463,21 @@ def _write_rows(leaf: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
 
 def decode_attention(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, index: torch.Tensor, cfg: ArchConfig, *,
-                     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                     ) -> torch.Tensor:
+                     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     positions3: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token attention against contiguous cache rows (B, S, KV, hd) with
     a per-row ``index`` (B,): row b writes its new K/V at ``index[b]`` and
     attends positions ``<= index[b]``. Rows whose index ran past the rows
     (idle serving slots) write nothing. Writes land IN PLACE (the JAX engine
     donates the cache for the same effect); the input index is never
     modified, so a re-issued step rewrites the same cells with the same
-    values. ``cache_scales`` (B, S, KV) x 2 selects the int8 KV cache.
-    x: (B, 1, D); returns the attention output (B, 1, D)."""
+    values. ``cache_scales`` (B, S, KV) x 2 selects the int8 KV cache;
+    ``positions3`` (3, B, 1) the M-RoPE positions. x: (B, 1, D); returns the
+    attention output (B, 1, D)."""
     B = x.shape[0]
     S = cache_k.shape[1]
     rows = torch.arange(B, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None])
+    q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None], positions3)
     ok = index < S
     pos = torch.clamp(index, max=S - 1).long()
     if cache_scales is not None:
@@ -356,7 +500,8 @@ def paged_decode_attention(p: Dict, x: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, tables: torch.Tensor,
                            index: torch.Tensor, cfg: ArchConfig, *,
                            cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                           use_kernel: bool = True) -> torch.Tensor:
+                           use_kernel: bool = True,
+                           positions3: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Block-native single-token attention over ONE layer's pool
     (n_blocks, block_size, KV, hd). The new token's K/V is written into its
     slot's pool cell ``(tables[b, index[b] // bs], index[b] % bs)`` IN PLACE
@@ -374,12 +519,13 @@ def paged_decode_attention(p: Dict, x: torch.Tensor, pool_k: torch.Tensor,
     math, so tokens equal the gather bridge's and the contiguous store's.
     The int8 KV cache always takes that plain contraction, as in the JAX
     package: the kernel reads float pools only, and this is the reference's
-    route for int8, not a fallback. x: (B, 1, D); returns (B, 1, D)."""
+    route for int8, not a fallback. ``positions3`` (3, B, 1): the M-RoPE
+    positions. x: (B, 1, D); returns (B, 1, D)."""
     B = x.shape[0]
     bs = pool_k.shape[1]
     S = tables.shape[1] * bs
     rows = torch.arange(B, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None])
+    q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None], positions3)
     pos = torch.clamp(index, max=S - 1).long()
     phys = tables[rows, pos // bs].long()
     off = pos % bs

@@ -1,14 +1,14 @@
 """Shared model layers: the W8A8 matmul, norms (RMSNorm, LayerNorm and
-qk_norm's head norm), the MLP (SwiGLU and GeLU), RoPE, init.
+qk_norm's head norm), the MLP (SwiGLU and GeLU), RoPE and M-RoPE, init.
 
-The port of ``repro.models.layers`` without M-RoPE. Params are nested dicts
+The port of ``repro.models.layers``. Params are nested dicts
 of tensors; compute dtype is ``cfg.dtype`` (bf16) while norm and RoPE math
 run in f32, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -155,6 +155,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, device=x.device)
     ang = positions[..., None].to(torch.float32) * inv
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE in f32: the hd / 2 rotary frequencies
+    split into (temporal, height, width) sections of ``sections`` sizes,
+    each rotated by its own row of ``positions3`` (3, B, S). x: (B, S, H,
+    hd). With the three rows equal it is :func:`apply_rope`."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not split {half} rotary dims")
+    inv = rope_freqs(hd, theta, device=x.device)
+    bounds = [0, sections[0], sections[0] + sections[1], half]
+    ang = torch.cat([positions3[i].to(torch.float32)[..., None] * inv[lo:hi]
+                     for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))], dim=-1)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,18 +1,25 @@
-"""Decoder-only LM of the dense, MoE and hybrid families: init (also
-streamed and quantized layer by layer), fused-prefill forward, logits.
+"""The LM of every family: init (also streamed and quantized layer by
+layer), the full-sequence forward (the dense families' fused prefill),
+logits.
 
-The port of ``repro.models.model``'s dense, moe and hybrid families. Params
-are a nested dict with the JAX package's tree and shapes: ``embed``
-(V_pad, D), ``final_ln``, ``lm_head`` (D, V_pad), and
+The port of ``repro.models.model``. Params are a nested dict with the JAX
+package's tree and shapes: ``embed`` (V_pad, D), ``final_ln``, ``lm_head``
+(D, V_pad), and
 
-  * dense and moe: ``layers`` whose leaves carry a leading stacked-layer
-    axis (L, ...); a layer holds ``ln1``, ``attn``, ``ln2`` and ``mlp``
-    (dense) or ``moe`` (models/moe.py);
+  * dense, moe and vlm: ``layers`` whose leaves carry a leading
+    stacked-layer axis (L, ...); a layer holds ``ln1``, ``attn``, ``ln2``
+    and ``mlp`` (dense, vlm) or ``moe`` (models/moe.py);
+  * encdec (seamless): ``encoder`` (L_enc, ...) layers of ``ln1``,
+    ``attn``, ``ln2``, ``mlp``; ``decoder`` (L, ...) layers of ``ln1``,
+    ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``; and
+    ``enc_final_ln``;
   * hybrid (zamba2): ``hybrid`` = {``groups`` (G, attn_every, ...) mamba
     layers (``ln``, ``mamba``: models/ssm.py), ``shared`` one attention +
     MLP block applied before each group, ``lora`` (G, ...) its per
     application W_q adapter (``qA`` (D, LORA_RANK), ``qB``), ``tail``
-    (rem, ...) the remainder mamba layers, or None}.
+    (rem, ...) the remainder mamba layers, or None};
+  * ssm (xlstm): ``xlstm`` = {``pairs`` (L / 2, ...) of ``ln_m``,
+    ``mlstm``, ``ln_s``, ``slstm`` (models/xlstm.py)}.
 
 Layers run as a Python loop over the stacked axis (the JAX package scans
 it).
@@ -30,16 +37,17 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid", "ssm")
+DENSE_FAMILIES = ("dense", "moe", "vlm")   # one stack of attention + FFN layers
 LORA_RANK = 16  # zamba2's per-application adapter rank
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not serve or build yet."""
+    """Raise for a family the JAX package does not build either."""
     if cfg.family not in FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
-                         f"{FAMILIES}; the others: ROADMAP queue 1 item 11)")
+        raise ValueError(f"unknown family {cfg.family!r} (expected one of {FAMILIES})")
 
 
 def _init_layer(cfg: ArchConfig, gen: torch.Generator, device) -> Dict:
@@ -138,50 +146,93 @@ def _init_hybrid(cfg: ArchConfig, gen: torch.Generator, device,
             "lora": lora, "tail": tail}
 
 
+def _init_pair(cfg: ArchConfig, gen: torch.Generator, device) -> Dict:
+    """One xlstm pair: its mLSTM block, then its sLSTM block."""
+    D = cfg.d_model
+    return {"ln_m": L.init_norm(cfg, D, device=device),
+            "mlstm": XL.init_mlstm(gen, cfg, device=device),
+            "ln_s": L.init_norm(cfg, D, device=device),
+            "slstm": XL.init_slstm(gen, cfg, device=device)}
+
+
+def _init_enc_layer(cfg: ArchConfig, gen: torch.Generator, device) -> Dict:
+    D = cfg.d_model
+    return {"ln1": L.init_norm(cfg, D, device=device),
+            "attn": A.init_attn(gen, cfg, D, device=device),
+            "ln2": L.init_norm(cfg, D, device=device),
+            "mlp": L.init_mlp(gen, cfg, D, cfg.d_ff, device=device)}
+
+
+def _init_dec_layer(cfg: ArchConfig, gen: torch.Generator, device) -> Dict:
+    """An encdec decoder layer: self-attention, cross-attention (whose wk
+    and wv project the encoder's output), the MLP."""
+    D = cfg.d_model
+    return {"ln1": L.init_norm(cfg, D, device=device),
+            "self_attn": A.init_attn(gen, cfg, D, device=device),
+            "ln_x": L.init_norm(cfg, D, device=device),
+            "cross_attn": A.init_attn(gen, cfg, D, device=device),
+            "ln2": L.init_norm(cfg, D, device=device),
+            "mlp": L.init_mlp(gen, cfg, D, cfg.d_ff, device=device)}
+
+
+def _init_body(cfg: ArchConfig, gen: torch.Generator, device,
+               prep: Callable[[Tuple[str, ...], Dict], Dict]) -> Dict:
+    """The family's layer trees, drawn layer by layer after the top-level
+    leaves; ``prep(path, tree)`` maps each drawn piece (identity, or the
+    streamed build's quantization under its full path) before it is
+    stacked."""
+    def stack(path, n, draw):
+        return _stream(n, lambda: draw(cfg, gen, device), lambda t: prep(path, t))
+    if cfg.family == "hybrid":
+        return {"hybrid": _init_hybrid(cfg, gen, device,
+                                       lambda part, t: prep(("hybrid", part), t))}
+    if cfg.family == "ssm":
+        return {"xlstm": {"pairs": stack(("xlstm", "pairs"), cfg.n_layers // 2,
+                                         _init_pair)}}
+    if cfg.family == "encdec":
+        return {"encoder": stack(("encoder",), cfg.n_enc_layers, _init_enc_layer),
+                "decoder": stack(("decoder",), cfg.n_layers, _init_dec_layer),
+                "enc_final_ln": L.init_norm(cfg, cfg.d_model, device=device)}
+    return {"layers": stack(("layers",), cfg.n_layers, _init_layer)}
+
+
 def init_model(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
     """Params in f32 with the JAX package's shapes and distributions: embed
     N(0, 0.02^2), projections LeCun-normal, norm scales 1 (LayerNorm biases
     0); the hybrid family's mamba and adapter leaves as models/ssm.py and
-    :func:`_init_lora` draw them. Random bits come from ``gen`` (a
-    ``torch.Generator`` on ``device``); they cannot and do not replay JAX's
-    PRNG."""
+    :func:`_init_lora` draw them, the xlstm blocks' as models/xlstm.py
+    does. Random bits come from ``gen`` (a ``torch.Generator`` on
+    ``device``); they cannot and do not replay JAX's PRNG."""
     check_family(cfg)
     params = _init_top(cfg, gen, device)
-    if cfg.family == "hybrid":
-        params["hybrid"] = _init_hybrid(cfg, gen, device, lambda part, t: t)
-        return params
-    layers = [_init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
-
-    def join(*leaves):
-        if isinstance(leaves[0], dict):
-            return {k: join(*(l[k] for l in leaves)) for k in leaves[0]}
-        return torch.stack(leaves)
-    params["layers"] = join(*layers)
+    params.update(_init_body(cfg, gen, device, lambda path, t: t))
     return params
 
 
 def init_model_quantized(cfg: ArchConfig, gen: torch.Generator,
                          predicate: Optional[Callable] = None, device=None) -> Dict:
     """The streamed build: :func:`init_model`'s draws in its order, each
-    layer quantized (``tz.quantize_params`` with ``predicate``) before the
-    next is drawn, its int8 codes and scales copied into stacked buffers
-    allocated once. Quantization reduces over axis -2 and keeps every
-    leading axis, so the result is bitwise ``tz.quantize_params(
-    init_model(...), predicate)``, while the peak memory stays near the
-    W8A8 model plus one layer in f32 (deepseek-moe-16b: about 17.5 GB, where
-    its f32 experts alone are 62 GB, and stacking them copies them again;
-    zamba2-7b: about 7.1 GB, where its f32 model is 27 GB)."""
+    layer quantized (``tz.quantize_params`` with ``predicate``, under its
+    full path) before the next is drawn, its int8 codes and scales copied
+    into stacked buffers allocated once. Quantization reduces over axis -2
+    and keeps every leading axis, so the result is bitwise
+    ``tz.quantize_params(init_model(...), predicate)``, while the peak
+    memory stays near the W8A8 model plus one layer in f32 (deepseek-moe-16b:
+    about 17.5 GB, where its f32 experts alone are 62 GB, and stacking them
+    copies them again; zamba2-7b: about 7.1 GB, where its f32 model is 27
+    GB)."""
     check_family(cfg)
     params = tz.quantize_params(_init_top(cfg, gen, device), predicate)
-    if cfg.family == "hybrid":
-        # each piece quantized under its full path, as the whole tree would be
-        params["hybrid"] = _init_hybrid(
-            cfg, gen, device, lambda part, t: tz.quantize_params(
-                {"hybrid": {part: t}}, predicate)["hybrid"][part])
-        return params
-    params["layers"] = _stream(
-        cfg.n_layers, lambda: _init_layer(cfg, gen, device),
-        lambda t: tz.quantize_params({"layers": t}, predicate)["layers"])
+
+    def prep(path, tree):
+        nested = tree
+        for k in reversed(path):
+            nested = {k: nested}
+        out = tz.quantize_params(nested, predicate)
+        for k in path:
+            out = out[k]
+        return out
+    params.update(_init_body(cfg, gen, device, prep))
     return params
 
 
@@ -244,44 +295,62 @@ def embed_tokens(params: Dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.T
     return params["embed"][tokens.long()].to(L.cdtype(cfg))
 
 
-def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor], *,
+            embeds: Optional[torch.Tensor] = None,
+            positions3: Optional[torch.Tensor] = None,
             return_hidden: bool = False,
             decode_rows: Optional[A.DecodeRows] = None) -> Tuple[torch.Tensor, Any]:
-    """Full-sequence forward over right-padded prompts ``tokens`` (B, S): for
-    the dense and MoE families the reference's ``forward(return_kv=True)``,
-    the fused serving admission; for the hybrid, its ``forward`` (the
-    embedding forward; the hybrid admits by ``serve.prefill_recurrent``),
-    returning ``(logits, None)`` or, with ``return_hidden``, ``(logits,
-    hidden)``.
-    Returns ``(logits, kv)``: logits (B, S, V_pad) and the per-layer K/V in
-    decode-cache layout, {"k", "v": (L, B, S, KV, hd)} plus
-    {"k_scale", "v_scale": (L, B, S, KV)} with the int8 KV cache.
+    """Full-sequence forward over right-padded prompts ``tokens`` (B, S),
+    or over precomputed ``embeds`` (B, S, D) (the vlm's patch embeddings,
+    ``tokens`` None; M-RoPE configs take ``positions3`` (3, B, S), the
+    (t, h, w) position ids). For encdec, ``embeds`` (B, Se, D) are the
+    encoder's frame embeddings and ``tokens`` the decoder's.
 
-    ``return_hidden`` returns ``(logits, hidden)`` instead: the final-norm
-    hidden states (B, S, D) the logits are projected from (the embedding
-    surface of the non-generative serve step), no K/V. MoE layers route
-    row-isolated on the K/V path and with the shared, dropping capacity on
-    the ``return_hidden`` path, as the reference's training forward does, so
-    there (and only for MoE) the logits are not the K/V path's bits. Each
-    query attends as a one-query contraction of
-    ``decode_rows``, the decode row whose bits it keeps (by default the
-    plain one over the S positions; models/attention.py
-    ``prefill_attention_with_kv``)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    if cfg.family == "hybrid":
-        hidden = L.apply_norm(params["final_ln"], _hybrid_forward(
-            params, cfg, embed_tokens(params, cfg, tokens), positions, decode_rows), cfg)
+    For the dense, MoE and vlm families this is the reference's
+    ``forward(return_kv=True)``, the fused serving admission: it returns
+    ``(logits, kv)``, logits (B, S, V_pad) and the per-layer K/V in
+    decode-cache layout, {"k", "v": (L, B, S, KV, hd)} plus {"k_scale",
+    "v_scale": (L, B, S, KV)} with the int8 KV cache. Each query attends as
+    a one-query contraction of ``decode_rows``, the decode row whose bits it
+    keeps (by default the plain one over the S positions; models/attention.py
+    ``prefill_attention_with_kv``).
+
+    For the hybrid and ssm families, and with ``return_hidden`` for every
+    family but encdec, it is the reference's ``forward``: ``(logits,
+    hidden)``, the final-norm hidden states (B, S, D) the logits are
+    projected from (the embedding surface of the non-generative serve
+    step; None without ``return_hidden``), no K/V. The recurrent families
+    admit by ``serve.prefill_recurrent``; the hybrid's attention runs its
+    queries as the prefill's one-query contractions, the xlstm its blocks'
+    full-sequence forms. MoE layers route row-isolated on the K/V path and
+    with the shared, dropping capacity on the ``return_hidden`` path, as the
+    reference's training forward does, so there (and only for MoE) the
+    logits are not the K/V path's bits. For encdec it is
+    ``_encdec_forward``: ``(logits, None)``."""
+    check_family(cfg)
+    src = tokens if embeds is None else embeds
+    B, S = src.shape[:2]
+    dev = src.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    if cfg.family == "encdec":
+        if return_hidden:
+            raise ValueError("return_hidden is a decoder-only path, not encdec")
+        return _encdec_forward(params, cfg, embeds, tokens), None
+    x = embed_tokens(params, cfg, tokens) if embeds is None else embeds.to(L.cdtype(cfg))
+    if cfg.family in ("hybrid", "ssm"):
+        body = _hybrid_forward if cfg.family == "hybrid" else _xlstm_forward
+        hidden = L.apply_norm(params["final_ln"], body(params, cfg, x, positions,
+                                                       decode_rows), cfg)
         return _head(params, cfg, hidden), (hidden if return_hidden else None)
     int8_kv = cfg.kv_cache_dtype == "int8"
     names = kv_names(cfg)
-    x = embed_tokens(params, cfg, tokens)
     entries = []
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         h = L.apply_norm(lp["ln1"], x, cfg)
         o, *kv = A.prefill_attention_with_kv(lp["attn"], h, cfg, positions=positions,
-                                             int8_kv=int8_kv, decode_rows=decode_rows)
+                                             positions3=positions3, int8_kv=int8_kv,
+                                             decode_rows=decode_rows)
         x = x + o
         h = L.apply_norm(lp["ln2"], x, cfg)
         x = x + ffn(lp, h, cfg, row_isolated=not return_hidden)
@@ -292,6 +361,61 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         return _head(params, cfg, hidden), hidden
     return _logits(params, cfg, x), {n: torch.stack([e[j] for e in entries])
                                      for j, n in enumerate(names)}
+
+
+def xlstm_pair(lp: Dict, x: torch.Tensor, cfg: ArchConfig, state=None,
+               decode: bool = False):
+    """A pre-norm mLSTM block, then a pre-norm sLSTM block, each added to
+    the residual stream x (B, T, D). ``state`` is ((C, n, m), (c, n, h,
+    m)) or None (pristine). Returns ``(x, (mlstm_state, slstm_state))``."""
+    ms, ss = state if state is not None else (None, None)
+    y, ms = XL.apply_mlstm(lp["mlstm"], L.apply_norm(lp["ln_m"], x, cfg), cfg,
+                           state=ms, decode=decode)
+    x = x + y
+    y, ss = XL.apply_slstm(lp["slstm"], L.apply_norm(lp["ln_s"], x, cfg), cfg,
+                           state=ss, decode=decode)
+    return x + y, (ms, ss)
+
+
+def _xlstm_forward(params: Dict, cfg: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor, decode_rows) -> torch.Tensor:
+    """xlstm's full-sequence pass: every pair from a pristine state, the
+    mLSTM in its chunked form. Returns the final residual stream."""
+    pairs = params["xlstm"]["pairs"]
+    for i in range(cfg.n_layers // 2):
+        x = xlstm_pair(layer_params(pairs, i), x, cfg)[0]
+    return x
+
+
+def _encdec_forward(params: Dict, cfg: ArchConfig, frames: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """seamless's forward: the bidirectional encoder over the frame
+    embeddings (B, Se, D), its final norm, then the causal decoder over
+    ``tokens`` (B, S), each layer cross-attending the encoder's output
+    through K/V projected by its cross-attention's wk and wv. Attention is
+    the full-sequence kind (models/attention.py ``attention``). Returns the
+    logits (B, S, V_pad)."""
+    x = frames.to(L.cdtype(cfg))
+    B, Se = x.shape[:2]
+    enc_pos = torch.arange(Se, dtype=torch.int32, device=x.device).expand(B, Se)
+    for i in range(cfg.n_enc_layers):
+        lp = layer_params(params["encoder"], i)
+        x = x + A.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                            positions=enc_pos, causal=False)
+        x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    enc_out = L.apply_norm(params["enc_final_ln"], x, cfg)
+    x = embed_tokens(params, cfg, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["decoder"], i)
+        x = x + A.attention(lp["self_attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                            positions=positions)
+        kv = A.project_kv_for_cross(lp["cross_attn"], enc_out, cfg)
+        x = x + A.attention(lp["cross_attn"], L.apply_norm(lp["ln_x"], x, cfg), cfg,
+                            positions=positions, kv=kv)
+        x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    return _logits(params, cfg, x)
 
 
 def shared_attn_params(hp: Dict, g: int) -> Dict:
@@ -326,8 +450,7 @@ def mamba_layer(lp: Dict, x: torch.Tensor, cfg: ArchConfig, conv_state=None,
 
 
 def _hybrid_forward(params: Dict, cfg: ArchConfig, x: torch.Tensor,
-                    positions: torch.Tensor,
-                    decode_rows: Optional[A.DecodeRows]) -> torch.Tensor:
+                    positions: torch.Tensor, decode_rows) -> torch.Tensor:
     """zamba2's full-sequence pass (the embedding forward): each group's
     shared-block application, causal attention whose queries run as the
     prefill's one-query contractions (``decode_rows``; no cache is kept),

@@ -1,21 +1,31 @@
 """Serving path: cache construction, fused, chunked and suffix
 prefill-with-cache, contiguous decode, block-native paged decode and the
 speculative verify window on both layouts — the port of
-``repro.models.serve`` for the dense and MoE families, float and int8 KV —
-and the hybrid family's recurrent cache, decode and masked-scan admission
-(``prefill_recurrent``). MoE layers route with the reference's capacity
-mode on each path: the ``active`` idle mask at decode, row-isolated at
-every prefill and verify.
+``repro.models.serve`` for the dense, MoE and vlm families, float and int8
+KV (the vlm's M-RoPE positions threaded through prefill and decode, as the
+reference threads them: not through the chunked scan or the verify
+window) — the recurrent families' caches, decode and masked-scan admission
+(``prefill_recurrent``: the hybrid and the xlstm), and the encdec's cache
+and decode. MoE layers route with the reference's capacity mode on each
+path: the ``active`` idle mask at decode, row-isolated at every prefill
+and verify.
 
 Cache dicts:
   contiguous  {"k", "v": (L, B, S, KV, hd), "index": (B,)}
   paged       {"k", "v": (L, NB, bs, KV, hd), "index": (B,), "tables": (B, MB)}
 plus {"k_scale", "v_scale"} (the same shapes without hd, f32) with the int8
-KV cache, whose entries are int8; and for the hybrid
+KV cache, whose entries are int8; for the hybrid
   recurrent   {"k", "v": (G, B, S, KV, hd) one per shared-block application,
                "groups": {"conv": (G * attn_every, B, 3, C) in the compute
                dtype, "ssm": (G * attn_every, B, H, P, N) f32},
                "tail": the same for the tail layers, or None, "index": (B,)}
+for the ssm family (xlstm), every leaf f32, one row per pair
+  recurrent   {"mlstm_C": (L/2, B, H, hd, hd), "mlstm_n": (L/2, B, H, hd),
+               "mlstm_m": (L/2, B, H), "slstm_c", "slstm_n", "slstm_h",
+               "slstm_m": (L/2, B, D), "index": (B,)}
+and for encdec, in the compute dtype with a scalar index
+  encdec      {"k", "v": (L, B, S, KV, hd), "cross_k", "cross_v":
+               (L, B, max(1, S // enc_len_ratio), KV, hd), "index": ()}
 """
 
 from __future__ import annotations
@@ -29,6 +39,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
+
+MLSTM_LEAVES = ("mlstm_C", "mlstm_n", "mlstm_m")
+SLSTM_LEAVES = ("slstm_c", "slstm_n", "slstm_h", "slstm_m")
 
 
 def _kv_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -48,16 +62,39 @@ def _with_scales(cfg: ArchConfig, cache: Dict, shape, device) -> Dict:
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
                per_slot_index: bool = False, device=None) -> Dict:
     """Contiguous serving cache: K/V rows (L, B, S, KV, hd) in the cache
-    dtype (+ int8 scales), and the index: (B,) per slot with
-    ``per_slot_index`` (the continuous-batching layout), else ()."""
+    dtype (+ int8 scales), or the family's recurrent or encdec cache
+    (module doc), and the index: (B,) per slot with ``per_slot_index``
+    (the continuous-batching layout), else (). The encdec's scalar-index
+    cross cache is not slot-batched, as in the reference."""
     M.check_family(cfg)
+    if per_slot_index and cfg.family == "encdec":
+        raise ValueError(f"per-slot cache indices unsupported for {cfg.family}")
     if cfg.family == "hybrid":
         cache = _init_hybrid_cache(cfg, batch, seq, device)
+    elif cfg.family == "ssm":
+        cache = _init_xlstm_cache(cfg, batch, device)
+    elif cfg.family == "encdec":
+        dt = L.cdtype(cfg)
+        cache = A.init_cache(cfg, cfg.n_layers, batch, seq, dt, device=device)
+        cross = A.init_cache(cfg, cfg.n_layers, batch, max(1, seq // cfg.enc_len_ratio),
+                             dt, device=device)
+        cache.update(cross_k=cross["k"], cross_v=cross["v"])
     else:
         cache = A.init_cache(cfg, cfg.n_layers, batch, seq, _kv_dtype(cfg), device=device)
         _with_scales(cfg, cache, (cfg.n_layers, batch, seq, cfg.n_kv), device)
     if per_slot_index:
         cache["index"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def _init_xlstm_cache(cfg: ArchConfig, batch: int, device) -> Dict:
+    """Every pair's pristine mLSTM and sLSTM state rows (models/xlstm.py)
+    and a scalar index."""
+    n = cfg.n_layers // 2
+    states = XL.mlstm_state(batch, cfg, device) + XL.slstm_state(batch, cfg, device)
+    cache = {name: t[None].repeat((n,) + (1,) * t.ndim)
+             for name, t in zip(MLSTM_LEAVES + SLSTM_LEAVES, states)}
+    cache["index"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
 
 
@@ -88,7 +125,7 @@ def init_paged_cache(cfg: ArchConfig, n_slots: int, n_blocks: int,
     tables (B, MB); per-slot index (B,). Block 0 is the reserved null block
     (serving/store.py)."""
     M.check_family(cfg)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in M.DENSE_FAMILIES:
         raise ValueError(f"paged KV cache is a dense-family layout, not {cfg.family}")
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv, cfg.hd)
     cache = {
@@ -105,15 +142,22 @@ def init_paged_cache(cfg: ArchConfig, n_slots: int, n_blocks: int,
 # prefill-with-cache: one forward that seeds serving slots
 # ===========================================================================
 
-def prefill_with_cache(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
-                       decode_rows: Optional[A.DecodeRows] = None
+def prefill_with_cache(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor],
+                       decode_rows: Optional[A.DecodeRows] = None, *,
+                       embeds: Optional[torch.Tensor] = None,
+                       positions3: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict]:
-    """Fused admission prefill: one full-sequence forward over right-padded
-    prompts returning (logits, kv) with kv in cache layout, ready to scatter
-    into leased slots (serving/store.py ``write_slots``). ``decode_rows``:
-    the decode row whose one-query contraction each query runs
-    (models/attention.py; by default the plain one over the S positions)."""
-    return M.forward(params, cfg, tokens, decode_rows=decode_rows)
+    """Fused admission prefill (dense, MoE, vlm): one full-sequence forward
+    over right-padded prompts, ``tokens`` (B, S) or the vlm's ``embeds``
+    (B, S, D) with ``positions3`` (3, B, S), returning (logits, kv) with
+    kv in cache layout, ready to scatter into leased slots
+    (serving/store.py ``write_slots``). ``decode_rows``: the decode row
+    whose one-query contraction each query runs (models/attention.py; by
+    default the plain one over the S positions)."""
+    if cfg.family not in M.DENSE_FAMILIES:
+        raise ValueError(f"prefill-with-cache is a dense-family path, not {cfg.family}")
+    return M.forward(params, cfg, tokens, embeds=embeds, positions3=positions3,
+                     decode_rows=decode_rows)
 
 
 def prefill_with_cache_chunked(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -265,72 +309,151 @@ def _hybrid_decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Ten
     return M._logits(params, cfg, x), dict(cache, index=new_index, **states)
 
 
+def _xlstm_decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
+                  keep: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """The xlstm's one-token decode body: every pair's mLSTM and sLSTM step
+    (models/xlstm.py) from its state rows, the new states written into NEW
+    state tensors, so a re-issued step computes the same result. ``keep``
+    (B,) bool (the masked admission scan) freezes the rows where it is
+    False: their states and index are carried over. Returns ``(logits,
+    cache)``."""
+    pairs = params["xlstm"]["pairs"]
+    index = cache["index"]
+    names = MLSTM_LEAVES + SLSTM_LEAVES
+    new = {n: torch.empty_like(cache[n]) for n in names}
+    x = M.embed_tokens(params, cfg, tokens)
+    for i in range(cfg.n_layers // 2):
+        state = (tuple(cache[n][i] for n in MLSTM_LEAVES),
+                 tuple(cache[n][i] for n in SLSTM_LEAVES))
+        x, (ms, ss) = M.xlstm_pair(M.layer_params(pairs, i), x, cfg, state, decode=True)
+        for name, t in zip(names, ms + ss):
+            if keep is not None:
+                t = torch.where(keep.reshape((-1,) + (1,) * (t.ndim - 1)), t, cache[name][i])
+            new[name][i].copy_(t)
+    new_index = index + 1 if keep is None else torch.where(keep, index + 1, index)
+    return M._logits(params, cfg, x), dict(cache, index=new_index, **new)
+
+
+_RECURRENT_DECODE = {"hybrid": _hybrid_decode, "ssm": _xlstm_decode}
+
+
 def prefill_recurrent(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                       last_index: torch.Tensor, max_seq_len: int
                       ) -> Tuple[torch.Tensor, Dict]:
-    """Admission for the recurrent (hybrid) family: the right-padded prompt
-    bucket (B, Sb) replayed through the decode body one position at a time
-    over a fresh B-row cache of ``max_seq_len`` positions. Rows whose prompt
-    ended (t > last_index[i]) are frozen (:func:`_hybrid_decode`'s ``keep``),
-    so pad tokens never touch them. Returns ``(row, cache)``: each row's
-    logits at its last prompt position (B, V_pad) f32 and its post-prompt
-    state, ready to copy into leased slot rows.
+    """Admission for the recurrent families (hybrid, ssm): the right-padded
+    prompt bucket (B, Sb) replayed through the family's decode body one
+    position at a time over a fresh B-row cache of ``max_seq_len``
+    positions. Rows whose prompt ended (t > last_index[i]) are frozen (the
+    body's ``keep``: :func:`_hybrid_decode`, :func:`_xlstm_decode`), so pad
+    tokens never touch them. Returns ``(row, cache)``: each row's logits at
+    its last prompt position (B, V_pad) f32 and its post-prompt state, ready
+    to copy into leased slot rows.
 
     Each step is the math of a B-row decode step, and every op of the body
-    keeps a row's bits whatever the row count (models/ssm.py), so the
-    states and first tokens are bitwise a replay of each prompt alone
-    through the one-row decode step."""
+    keeps a row's bits whatever the row count (models/ssm.py,
+    models/xlstm.py), so the states and first tokens are bitwise a replay
+    of each prompt alone through the one-row decode step."""
     M.check_family(cfg)
+    if cfg.family not in _RECURRENT_DECODE:
+        raise ValueError(f"the masked-scan admission is a recurrent-family path, "
+                         f"not {cfg.family}")
+    body = _RECURRENT_DECODE[cfg.family]
     B, Sb = tokens.shape
     cache = init_cache(cfg, B, max_seq_len, per_slot_index=True, device=tokens.device)
     row = torch.zeros((B, cfg.vocab_padded), dtype=torch.float32, device=tokens.device)
     for t in range(Sb):
-        logits, cache = _hybrid_decode(params, cfg, cache, tokens[:, t:t + 1],
-                                       keep=t <= last_index)
+        logits, cache = body(params, cfg, cache, tokens[:, t:t + 1], keep=t <= last_index)
         row = torch.where((t == last_index)[:, None], logits[:, -1].to(torch.float32), row)
     return row, cache
 
 
+def _mrope_positions(cfg: ArchConfig, index: torch.Tensor,
+                     positions3: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A decode step's M-RoPE positions: ``positions3`` (3, B, 1), or by
+    default each row's index on all three sections (text tokens after the
+    prompt), as the reference sets them; None without M-RoPE."""
+    if cfg.rope_kind != "mrope" or positions3 is not None:
+        return positions3
+    return index[None, :, None].expand(3, index.shape[0], 1)
+
+
+def _encdec_decode(params: Dict, cfg: ArchConfig, cache: Dict,
+                   tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """The encdec's one-token decode against its scalar-index cache: each
+    decoder layer's self-attention writes the token's K/V at the index, in
+    place (the scalar broadcast over the rows: decode's per-row attention),
+    and attends up to it; its cross-attention reads every position of the
+    cross cache (models/attention.py ``cross_decode_attention``; the
+    reference's step never writes that cache, nor does this one). Returns
+    ``(logits, cache)`` with a NEW index ``index + 1``."""
+    index = cache["index"]
+    if index.ndim:
+        raise ValueError(f"per-slot cache indices unsupported for {cfg.family}")
+    B = tokens.shape[0]
+    rows_index = index.expand(B)
+    positions = rows_index[:, None]
+    x = M.embed_tokens(params, cfg, tokens)
+    for i in range(cfg.n_layers):
+        lp = M.layer_params(params["decoder"], i)
+        x = x + A.decode_attention(lp["self_attn"], L.apply_norm(lp["ln1"], x, cfg),
+                                   cache["k"][i], cache["v"][i], rows_index, cfg)
+        x = x + A.cross_decode_attention(lp["cross_attn"], L.apply_norm(lp["ln_x"], x, cfg),
+                                         cache["cross_k"][i], cache["cross_v"][i],
+                                         positions, cfg)
+        x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    return M._logits(params, cfg, x), dict(cache, index=index + 1)
+
+
 def decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,
-           active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+           active: Optional[torch.Tensor] = None,
+           positions3: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode against contiguous rows with a per-slot index.
     ``tokens`` is (B, 1); ``active`` (B,) bool masks idle slots out of the
-    MoE capacity cumsum (the engine passes it on every step). Every layer writes the new token's K/V at its
-    row's index, in place, and attends positions up to it. Returns
-    ``(logits, cache)``: the same leaf tensors and a NEW index tensor
-    ``index + 1`` (the input index is never modified, so a re-issued step
-    sees the same positions). The hybrid family decodes its recurrent
-    cache (:func:`_hybrid_decode`: new state tensors, K/V in place)."""
+    MoE capacity cumsum (the engine passes it on every step); ``positions3``
+    (3, B, 1) the M-RoPE positions (by default the index on all three
+    sections). Every layer writes the new token's K/V at its row's index,
+    in place, and attends positions up to it. Returns ``(logits, cache)``:
+    the same leaf tensors and a NEW index tensor ``index + 1`` (the input
+    index is never modified, so a re-issued step sees the same positions).
+    The recurrent families decode their state caches
+    (:func:`_hybrid_decode`, :func:`_xlstm_decode`: new state tensors, K/V
+    in place), the encdec its scalar-index cache (:func:`_encdec_decode`)."""
     M.check_family(cfg)
-    if cfg.family == "hybrid":
-        return _hybrid_decode(params, cfg, cache, tokens)
+    if cfg.family in _RECURRENT_DECODE:
+        return _RECURRENT_DECODE[cfg.family](params, cfg, cache, tokens)
+    if cfg.family == "encdec":
+        return _encdec_decode(params, cfg, cache, tokens)
     index = cache["index"]
+    p3 = _mrope_positions(cfg, index, positions3)
 
     def attend(lp, h, i, scales):
         return A.decode_attention(lp, h, cache["k"][i], cache["v"][i], index, cfg,
-                                  cache_scales=scales)
+                                  cache_scales=scales, positions3=p3)
     return (_decode_layers(params, cfg, cache, tokens, attend, active=active),
             dict(cache, index=index + 1))
 
 
 def decode_paged(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor, *,
-                 use_kernel: bool = True,
-                 active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
-    """Block-native single-token decode over the paged pool. ``tokens`` is
-    (B, 1); ``active`` as in :func:`decode`. Each layer writes the new
-    token's K/V into its pool cell through the tables, in place, and
-    attends block-natively: through the
-    paged-attention kernel with ``use_kernel`` and float KV, else by the
-    plain per-layer gather and contraction (models/attention.py
+                 use_kernel: bool = True, active: Optional[torch.Tensor] = None,
+                 positions3: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """Block-native single-token decode over the paged pool (dense, MoE,
+    vlm). ``tokens`` is (B, 1); ``active`` and ``positions3`` as in
+    :func:`decode`. Each layer writes the new token's K/V into its pool
+    cell through the tables, in place, and attends block-natively: through
+    the paged-attention kernel with ``use_kernel`` and float KV, else by
+    the plain per-layer gather and contraction (models/attention.py
     ``paged_decode_attention``). Returns ``(logits, cache)``: the same pool
     tensors and a NEW index tensor ``index + 1``."""
     M.check_family(cfg)
+    if cfg.family not in M.DENSE_FAMILIES:
+        raise ValueError(f"paged decode is a dense-family path, not {cfg.family}")
     index, tables = cache["index"], cache["tables"]
+    p3 = _mrope_positions(cfg, index, positions3)
 
     def attend(lp, h, i, scales):
         return A.paged_decode_attention(lp, h, cache["k"][i], cache["v"][i], tables,
                                         index, cfg, cache_scales=scales,
-                                        use_kernel=use_kernel)
+                                        use_kernel=use_kernel, positions3=p3)
     return (_decode_layers(params, cfg, cache, tokens, attend, active=active),
             dict(cache, index=index + 1))
 

@@ -36,6 +36,20 @@ def _emit(cfg: ArchConfig, row: torch.Tensor, payload, sampling: Optional[Dict],
     return tok, payload, SMP.logprob_info(row, tok, cfg.vocab)
 
 
+def make_prefill_step(cfg: ArchConfig) -> Callable:
+    """The next-token distribution of a full-sequence forward, every
+    family: ``prefill_step(params, tokens, embeds=None, positions3=None)``
+    -> the last position's logits (B, V_pad) (``model.forward``'s inputs:
+    the vlm's embeds and M-RoPE positions, the encdec's decoder tokens and
+    frame embeddings)."""
+    def prefill_step(params: Dict, tokens: Optional[torch.Tensor],
+                     embeds: Optional[torch.Tensor] = None,
+                     positions3: Optional[torch.Tensor] = None):
+        logits = M.forward(params, cfg, tokens, embeds=embeds, positions3=positions3)[0]
+        return logits[:, -1, :]
+    return prefill_step
+
+
 def make_prefill_with_cache_step(cfg: ArchConfig,
                                  decode_rows: Optional[DecodeRows] = None) -> Callable:
     """Fused admission step: right-padded prompt bucket (B, S) and each row's
@@ -51,7 +65,7 @@ def make_prefill_with_cache_step(cfg: ArchConfig,
 
 
 def make_recurrent_prefill_step(cfg: ArchConfig, max_seq_len: int) -> Callable:
-    """Admission step of the recurrent (hybrid) family: the fused step's
+    """Admission step of the recurrent families: the fused step's
     contract, ``(first_tokens (B,), cache)`` with the post-prompt state rows
     of a ``max_seq_len`` cache, by the masked replay of the decode body over
     the bucket (models/serve.py ``prefill_recurrent``)."""

@@ -1,12 +1,14 @@
 """Continuous-batching inference engine over the OPQ runtime — the port of
 ``repro.serving.engine``'s single-host engine for a dense or MoE model,
-float or int8 KV, or a hybrid (zamba2) model on the recurrent state store,
+float or int8 KV, or a recurrent model (the hybrid zamba2, the ssm xlstm)
+on the recurrent state store,
 through every SlotStore route of the reference (contiguous rows;
 the paged pool through the gather bridge, block-natively in plain torch, or
 block-natively through the paged-attention kernel), with chunked prefill
 for long prompts, the shared-prefix radix cache, per-request sampling,
 stop sequences and logprobs, greedy speculative decode with a dense, MoE
-or hybrid draft, and the non-generative ``embed`` forward.
+or recurrent draft, and the non-generative ``embed`` forward. Token-input
+archs only, as in the reference: the vlm and encdec families are refused.
 
 Requests enter a bounded FIFO (admission control); a slot scheduler joins
 them into a fixed-width in-flight decode batch and retires them as they
@@ -15,7 +17,7 @@ dispatch per bucket batch (first token + per-layer K/V in cache layout) and
 one batched write into the leased slots: the fused single-shot step, the
 chunked scan for buckets wider than ``prefill_chunk``, or, for prefix-cache
 hits, the suffix scan over the chunks the cached prefix does not cover; for
-the hybrid, the masked replay of its decode body over the bucket.
+a recurrent model, the masked replay of its decode body over the bucket.
 Every device step is an OPQ instruction, so buffer affinity and backup
 re-issue apply to serving traffic; the per-flag instruction counts are the
 dispatch audit trail.
@@ -54,7 +56,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.opq import OPQ, Buffer
 from repro_torch.models import steps as ST
 from repro_torch.models.attention import DecodeRows
-from repro_torch.models.model import check_family
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics, now
 from repro_torch.serving.sampling import (
     GREEDY, TOP_LOGPROBS, SamplingParams, sampling_to_wire, stack_params, stop_match,
@@ -126,10 +127,9 @@ class Request:
 class EngineConfig:
     """Per-engine serving knobs, the JAX package's fields; see
     ``repro.serving.engine.EngineConfig`` for each field's meaning. The port
-    serves every field for a dense or MoE target, and a hybrid target on
-    ``cache_backend="recurrent"`` (what "auto" picks for it) with the
-    reference's refusals; a target or draft of the ssm family (xlstm)
-    raises a ValueError naming ROADMAP queue 1 item 11, which ports it."""
+    serves every field for a dense or MoE target, and a recurrent (hybrid
+    or ssm) target on ``cache_backend="recurrent"`` (what "auto" picks for
+    it), with the reference's refusals."""
 
     max_slots: int = 4
     max_queue: int = 64
@@ -149,13 +149,15 @@ class EngineConfig:
     draft: Optional[ArchConfig] = None
 
 
+SERVED_FAMILIES = ("dense", "moe") + RECURRENT_FAMILIES
+
+
 def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
-    """The reference's construction checks, and the families still to port."""
-    check_family(cfg)
+    """The reference's construction checks, with its messages."""
     recurrent = cfg.family in RECURRENT_FAMILIES
-    if cfg.input_mode != "tokens":
-        raise ValueError(f"the port serves token-input archs, got input_mode="
-                         f"{cfg.input_mode} (ROADMAP queue 1 item 11)")
+    if cfg.family not in SERVED_FAMILIES or cfg.input_mode != "tokens":
+        raise ValueError(f"serving engine supports token-input dense/moe/ssm/hybrid "
+                         f"archs, got family={cfg.family} input_mode={cfg.input_mode}")
     if ecfg.speculative:
         if ecfg.draft is None or draft_params is None:
             raise ValueError("speculative decode needs a draft model: set "
@@ -176,10 +178,9 @@ def _check_config(cfg: ArchConfig, ecfg: EngineConfig, draft_params) -> None:
         if d.vocab != cfg.vocab:
             raise ValueError(f"draft vocab {d.vocab} != target vocab {cfg.vocab}: "
                              f"draft proposals must be target token ids")
-        check_family(d)
-        if d.input_mode != "tokens":
-            raise ValueError(f"the port's draft must be a token-input arch, got "
-                             f"input_mode={d.input_mode} (ROADMAP queue 1 item 11)")
+        if d.input_mode != "tokens" or d.family not in SERVED_FAMILIES:
+            raise ValueError(f"draft must be a token-input dense/moe/ssm/hybrid arch, "
+                             f"got family={d.family} input_mode={d.input_mode}")
     elif ecfg.draft is not None:
         raise ValueError("EngineConfig.draft is set but speculative=False: enable "
                          "speculative or drop the draft config")

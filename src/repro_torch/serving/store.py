@@ -1,5 +1,5 @@
 """SlotStore: the serving cache behind one protocol — the port of
-``repro.serving.store`` for the dense, moe and hybrid families.
+``repro.serving.store``.
 
 The engine decodes a fixed ``n_slots``-row batch; each row ("slot") is
 leased to one in-flight request. Everything the engine knows about the
@@ -26,7 +26,8 @@ Backends
                      decode step (``decode_view_bytes: 0``).
   RecurrentStateStore per-slot recurrent state rows (the hybrid's mamba
                      conv and ssm states beside its shared attention's K/V
-                     rows), admitted by whole rows from the masked-scan
+                     rows; the xlstm's mLSTM and sLSTM states), admitted
+                     by whole rows from the masked-scan
                      prefill; a recurrent speculative draft rolls back by
                      adopting per-slot state snapshots (``adopt_selected``).
 
@@ -71,10 +72,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import serve as SV
-from repro_torch.models.model import check_family
+from repro_torch.models.model import DENSE_FAMILIES, check_family
 
 _META = ("index", "tables")
-DENSE_FAMILIES = ("dense", "moe")
 RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 # the xlstm mLSTM stabilizer's "no history" sentinel (the reference's
@@ -942,7 +942,8 @@ class PagedKVStore(SlotStore):
 
 class RecurrentStateStore(SlotStore):
     """Per-slot recurrent state rows: the hybrid's mamba conv and ssm states
-    and its shared attention's K/V rows, every leaf with the slot on axis 1
+    and its shared attention's K/V rows, or the xlstm's mLSTM (C, n, m) and
+    sLSTM (c, n, h, m) states, every leaf with the slot on axis 1
     (``_leaves``), so reset is the shared row scrub. Admission copies whole
     rows from the masked-scan prefill (models/serve.py
     ``prefill_recurrent``). There is no per-position rollback: a recurrent
@@ -1004,9 +1005,8 @@ def make_store(cfg: ArchConfig, n_slots: int, max_seq_len: int,
                n_blocks: Optional[int] = None, native: bool = False,
                prefix_cache: bool = False, device=None) -> SlotStore:
     """Build the SlotStore backend for a config. ``backend="auto"`` picks
-    contiguous for the dense and moe families and recurrent for ssm/hybrid
-    (the ssm family is not ported: its cache raises). ``native`` and
-    ``prefix_cache`` are paged-only."""
+    contiguous for the dense, moe and vlm families and recurrent for
+    ssm/hybrid. ``native`` and ``prefix_cache`` are paged-only."""
     if backend == "auto":
         backend = "recurrent" if cfg.family in RECURRENT_FAMILIES else "contiguous"
     if native and backend != "paged":

@@ -3,10 +3,10 @@ MoE family (moonshot-v1-16b-a3b, deepseek-moe-16b) and the dense family's
 other configs (qwen3-14b: qk_norm; starcoder2-15b: LayerNorm and GeLU;
 granite-20b: MQA), at their smoke sizes.
 
-  * configs — every field equal to the reference's (zamba2-7b's too); the
-    three configs still to port (xlstm-125m, seamless-m4t-medium,
-    qwen2-vl-2b) raise, naming ROADMAP item 11, in the registry, the Engine
-    and the CLI;
+  * configs — every field equal to the reference's (zamba2-7b's,
+    xlstm-125m's, seamless-m4t-medium's and qwen2-vl-2b's too); the CLI
+    serves xlstm-125m, and it and the Engine refuse the embeds-input
+    seamless-m4t-medium and qwen2-vl-2b with the reference's messages;
   * layer pieces — ``rms_head_norm``, LayerNorm, GeLU and the GeLU MLP;
   * the model — the fused prefill-with-cache (logits and K/V) on each new
     arch, with W8A8 weights carried from the reference by
@@ -160,7 +160,7 @@ def _within_one_ulp(got, ref):
 
 # ---------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + ["tinyllama-1.1b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["tinyllama-1.1b", "zamba2-7b"] + UNPORTED)
 def test_config_fields_equal_the_references(arch):
     ref = dataclasses.asdict(get_config(arch))
     got = dataclasses.asdict(tget_config(arch))
@@ -171,16 +171,27 @@ def test_config_fields_equal_the_references(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_configs_name_item_11(arch, capsys):
-    with pytest.raises(ValueError, match="item 11"):
-        tget_config(arch)
+    """The last three configs, once refused, now build; the CLI and the
+    Engine serve xlstm-125m (token input, the recurrent store) and refuse
+    the embeds-input seamless-m4t-medium and qwen2-vl-2b with the
+    reference's messages."""
+    cfg = tget_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(get_config(arch))
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "1",
+            "--prompt-len", "4", "--gen", "2", "--slots", "1"]
+    if cfg.input_mode == "tokens":
+        reqs, stats = tserve.run(argv)
+        assert [len(r.tokens) for r in reqs] == [2]
+        assert stats["cache"]["backend"] == "recurrent"
+        return
     with pytest.raises(SystemExit):
-        tserve.run(["--arch", arch, "--smoke", "--device", "cpu"])
-    assert "item 11" in capsys.readouterr().err
-    # the Engine refuses their families too
-    family = get_config(arch).family
-    cfg = tget_config("tinyllama-1.1b").smoke().replace(family=family)
-    with pytest.raises(ValueError, match="item 11"):
-        Engine(cfg, {}, EngineConfig(max_slots=1, max_seq_len=16), device="cpu")
+        tserve.run(argv)
+    assert (f"--arch {arch} (family={cfg.family}, input_mode=embeds) is not servable "
+            f"yet" in capsys.readouterr().err)
+    with pytest.raises(ValueError, match=f"serving engine supports token-input "
+                                         f"dense/moe/ssm/hybrid archs, got "
+                                         f"family={cfg.family} input_mode=embeds"):
+        Engine(cfg.smoke(), {}, EngineConfig(max_slots=1, max_seq_len=16), device="cpu")
 
 
 # ----------------------------------------------------------- layer pieces

@@ -63,8 +63,11 @@ def test_configs_match_reference():
             == dataclasses.asdict(get_config("tinyllama-1.1b")))
     assert (dataclasses.asdict(tget_config("qwen3-14b"))
             == dataclasses.asdict(get_config("qwen3-14b")))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tget_config("xlstm-125m")
+    # the last three families are ported too; an unknown arch is refused
+    for arch in ("xlstm-125m", "seamless-m4t-medium", "qwen2-vl-2b"):
+        assert dataclasses.asdict(tget_config(arch)) == dataclasses.asdict(get_config(arch))
+    with pytest.raises(ValueError, match="unknown arch"):
+        tget_config("gpt-5")
 
 
 @pytest.mark.parametrize("shape,K,N", [((2, 5), 64, 96), ((1, 1), 128, 256),

@@ -22,7 +22,7 @@ W8A8, and at n_layers=5 with a tail layer) on the recurrent state store:
     the draft alone, and no snapshot shares storage with the live cache or
     another snapshot;
   * the reference's refusals, with its messages; the ssm family (xlstm)
-    still names ROADMAP item 11;
+    gets the recurrent store too (tests/test_torch_xlstm.py serves it);
   * the serve CLI on the recurrent backend, and with a zamba2 draft.
 
 The reference runs in a subprocess with
@@ -362,9 +362,9 @@ def test_engine_refuses_what_the_reference_refuses(hybrid_params, kw, match):
 def test_recurrent_store_refusals():
     with pytest.raises(ValueError, match="supports ssm/hybrid state caches, not dense"):
         make_store(TARGET, 2, 32, backend="recurrent", device="cpu")
-    # the ssm family (xlstm) is still to port
-    with pytest.raises(ValueError, match="item 11"):
-        make_store(TARGET.replace(family="ssm"), 2, 32, device="cpu")
+    # the ssm family (xlstm) gets the recurrent store too
+    assert isinstance(make_store(TARGET.replace(family="ssm"), 2, 32, device="cpu"),
+                      RecurrentStateStore)
     assert isinstance(make_store(CFG, 2, 32, device="cpu"), RecurrentStateStore)
 
 

@@ -469,12 +469,17 @@ def test_spec_config_validation(params):
         build(speculative=True, draft=CFG.replace(vocab=CFG.vocab * 2))
     with pytest.raises(ValueError, match="paged_kernel|kernel"):
         build(cache_backend="paged", paged_native=True, paged_kernel=True, **_spec_kw())
-    # the ssm family (xlstm) still names the ROADMAP item that ports it; a
-    # hybrid target is the reference's refusal, a hybrid draft is served
-    with pytest.raises(ValueError, match="item 11"):
+    # a recurrent (ssm or hybrid) target is the reference's refusal; an ssm
+    # or hybrid draft is served; an embeds-input draft is refused
+    with pytest.raises(ValueError, match="TARGET must be a dense-family arch, got ssm"):
         build(cfg=CFG.replace(family="ssm"), **_spec_kw())
-    with pytest.raises(ValueError, match="item 11"):
-        build(**_spec_kw(CFG.replace(family="ssm")))
+    xlstm = get_config("xlstm-125m").smoke().replace(quantize="serve")
+    build(dparams=init_model_quantized(xlstm, torch.Generator().manual_seed(1),
+                                       quant_predicate, device="cpu"),
+          **_spec_kw(xlstm)).close()
+    with pytest.raises(ValueError, match="draft must be a token-input dense/moe/ssm/hybrid "
+                                         "arch, got family=vlm input_mode=embeds"):
+        build(**_spec_kw(get_config("qwen2-vl-2b").smoke()))
     with pytest.raises(ValueError, match="TARGET must be a dense-family arch, got hybrid"):
         build(cfg=CFG.replace(family="hybrid"), **_spec_kw())
     zamba = get_config("zamba2-7b").smoke().replace(quantize="serve")

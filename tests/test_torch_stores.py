@@ -32,6 +32,7 @@ from repro_torch.models import init_model
 from repro_torch.serving import (ContiguousKVStore, Engine, EngineConfig, PagedKVStore,
                                  format_memory_stats, make_store, pristine_value)
 from repro_torch.serving.kv import KVSlotManager
+from repro_torch.serving.store import RecurrentStateStore
 
 CFG = get_config("tinyllama-1.1b").smoke().replace(quantize="serve")
 KV_DTYPES = ["bfloat16", "int8"]
@@ -358,8 +359,10 @@ def test_make_store_backend_selection():
     assert isinstance(make_store(CFG, 2, 32, backend="paged", device="cpu"), PagedKVStore)
     with pytest.raises(ValueError, match="supports ssm/hybrid state caches, not dense"):
         make_store(CFG, 2, 32, backend="recurrent")
-    with pytest.raises(ValueError, match="item 11"):
-        make_store(CFG.replace(family="ssm"), 2, 32)
+    # the ssm family (xlstm) gets the recurrent store, with its sentinels
+    ssm = make_store(CFG.replace(family="ssm"), 2, 32, device="cpu")
+    assert isinstance(ssm, RecurrentStateStore)
+    assert bool((ssm.cache["mlstm_m"] == -60.0).all())
     with pytest.raises(ValueError, match="divide"):
         make_store(CFG, 2, 32, backend="paged", block_size=12)
     with pytest.raises(ValueError, match="unknown cache backend"):
