@@ -174,11 +174,30 @@ seconds since the previous line):
                 argmax), the chunked attention against the plain one, 32
                 decode steps (qgemm 97 a step), a decode step's profile,
                 the card against the CPU at 2 + 2 layers
+ 25. train    — the training path (repro_torch.launch.train): tinyllama-1.1b
+                at full width and depth (batch 8, seq 128, bf16 compute, f32
+                master weights, remat) takes 8 AdamW steps through the CLI,
+                twice: losses finite and below 2 ln V, step 0 (lr 0)
+                leaving every parameter bitwise unchanged and step 1
+                changing every leaf, the second run's losses bitwise the
+                first's; one step's loss and grads with remat on and off
+                bitwise equal, each step's peak device memory; the median
+                step's wall time and tok/s, the params' and moments'
+                bytes, one step profiled in forward, backward and
+                optimizer parts beside the step's bound, the embedding's
+                backward two ways; the card against the CPU at 2 layers in
+                f32 (logits, loss, every grad leaf, one AdamW update on
+                identical grads) and for every other family at its smoke
+                config (MoE's aux too); the crash drill through the CLI
+                twice (exit 42, "resumed from checkpoint step 6", "done: 8
+                steps", the resumed losses bitwise equal); the 2-layer
+                state's checkpoint round trip, bitwise (snapshot, write and
+                load times); no kernel launched
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
 sampling, speculative, fleet (its in-process runs), gptpu, ops, moe,
-dense_configs, hybrid, xlstm, vlm and encdec; ``ms`` and
+dense_configs, hybrid, xlstm, vlm, encdec and train (0 each); ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -4024,6 +4043,441 @@ def clone_tree(tree):
     return None if tree is None else tree.clone()
 
 
+# ------------------------------------------------------------- training
+
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ = 8, 128          # the reference CLI's defaults
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--log-every", "1", "--device", "cuda"]
+TRAIN_REFERENCE_LAYERS = 2
+TRAIN_REFERENCE_SHAPE = (2, 64)          # batch, seq of the card-vs-CPU step
+TRAIN_FAMILIES = ("deepseek-moe-16b", "zamba2-7b", "xlstm-125m", "seamless-m4t-medium",
+                  "qwen2-vl-2b")
+# the f32 rule of tests/test_torch_train*.py: logits within this share of
+# the reference's absolute max, the loss within this rtol, each grad leaf
+# within this relative L2 norm, a leaf's norm floored at LEAF_FLOOR of the
+# whole gradient's (a leaf whose true gradient is 0, as the sLSTM's
+# input-gate bias, holds only rounding noise)
+F32_LOGITS, F32_LOSS, F32_LEAF, LEAF_FLOOR = 1e-4, 1e-5, 1e-4, 1e-6
+DRILL_ARGS = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "8", "--batch", "2", "--seq", "16",
+              "--ckpt-every", "3", "--log-every", "2", "--device", "cuda"]
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+OPT_BYTES_PER_PARAM = 28       # AdamW reads p, g, m, v (f32) and writes p, m, v
+
+
+def run_train_cli(argv, on_step=None):
+    """``repro_torch.launch.train.main(argv)`` with its stdout captured:
+    (exit code, its lines, a record per step: loss, gnorm, lr, aux and the
+    host wall ms since the previous step's end, ``on_step``'s own time
+    left out)."""
+    import io
+    from repro_torch.launch import train as TR
+    records, last = [], [time.perf_counter()]
+
+    def hook(step, params, opt_state, metrics):
+        now = time.perf_counter()
+        records.append({"step": step, "wall_ms": 1e3 * (now - last[0]),
+                        **{k: float(metrics[k]) for k in ("loss", "gnorm", "lr", "aux")}})
+        if on_step is not None:
+            on_step(step, params, opt_state, metrics)
+        last[0] = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = TR.main(argv, on_step=hook)
+    return rc, buf.getvalue().splitlines(), records
+
+
+def rel_l2(g, c, floor=0.0):
+    """||g - c|| / max(||c||, floor) in f64 (the difference's norm where
+    both are 0)."""
+    import torch
+    g, c = (t.detach().to("cpu", torch.float64) for t in (g, c))
+    den = max(float(torch.linalg.vector_norm(c)), floor)
+    num = float(torch.linalg.vector_norm(g - c))
+    return num / den if den else num
+
+
+def leaf_errors(got, ref):
+    """Each grad leaf's :func:`rel_l2` against ``ref``, its norm floored
+    at LEAF_FLOOR of the whole reference gradient's norm."""
+    import torch
+    total = sum(float(torch.linalg.vector_norm(c.detach().double())) ** 2 for c in ref) ** 0.5
+    return [rel_l2(g, c, LEAF_FLOOR * total) for g, c in zip(got, ref)]
+
+
+def hold_f32_rule(label, card, cpu):
+    """Card against CPU by the f32 rule: (logits, loss, aux, grad leaves)
+    of each side. Returns the measured fractions."""
+    import torch
+    lg, ll, la, lgr = card
+    cl, cll, ca, cgr = cpu
+    logits = float((lg.cpu() - cl).abs().max()) / float(cl.abs().max())
+    loss = abs(float(ll) - float(cll)) / abs(float(cll))
+    aux = abs(float(la) - float(ca)) / max(abs(float(ca)), 1e-30)
+    leaves = leaf_errors(lgr, cgr)
+    check(bool(torch.isfinite(lg).all()) and logits <= F32_LOGITS,
+          f"{label}: logits differ by {logits} of the CPU's max (rule {F32_LOGITS})")
+    check(loss <= F32_LOSS, f"{label}: loss {float(ll)} vs CPU {float(cll)}")
+    check(aux <= F32_LOSS or float(ca) == 0 == float(la), f"{label}: aux {float(la)} vs "
+          f"CPU {float(ca)}")
+    check(max(leaves) <= F32_LEAF, f"{label}: a grad leaf differs by {max(leaves)} in "
+          f"relative L2 (rule {F32_LEAF})")
+    return {"logits_of_max": logits, "loss_rel": loss, "aux": float(la), "aux_rel": aux,
+            "grad_leaf_rel_l2_max": max(leaves), "grad_leaves": len(leaves)}
+
+
+def loss_and_grads(params, cfg, batch):
+    """(logits, loss, aux, grads in JAX's leaf order) of one forward and
+    backward, with no update."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as ST
+    with torch.no_grad():
+        logits = M.train_forward(params, cfg, batch)[0]
+    loss, metrics = ST.forward_for_grads(params, cfg, batch)
+    grads = T.leaves(ST.grads_of(loss, params))
+    return logits, loss.detach(), metrics["aux"], grads
+
+
+def family_batch(cfg, B=2, S=16, seed=3):
+    """A numpy-seeded batch of ``cfg``'s family: tokens, and the encdec's
+    frames or the vlm's patch embeddings with (t, h, w) positions."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "encdec":
+        batch["embeds"] = rng.standard_normal((B, S // cfg.enc_len_ratio, cfg.d_model),
+                                              dtype=np.float32)
+    if cfg.family == "vlm":
+        batch["embeds"] = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+        side = int(S ** 0.5)
+        grid = np.stack([np.zeros(S), np.arange(S) // side, np.arange(S) % side])
+        batch["positions3"] = np.broadcast_to(grid[:, None], (3, B, S)).astype(np.int32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+
+
+def train_bound_ms(cfg, B, S, remat=True):
+    """The least time the card could take for one train step: the
+    projections' and attention's multiply-adds at the dense bf16 peak
+    (forward, backward at twice the forward, and with remat the layers'
+    forward again), then AdamW's bytes at the memory rate."""
+    from repro_torch import tree as T
+    D, H, KV, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    per_layer = 2 * D * H * hd + 2 * D * KV * hd + 3 * D * F
+    tokens = B * S
+    layers = 2 * tokens * per_layer * cfg.n_layers + 4 * B * S * S * H * hd * cfg.n_layers
+    head = 2 * tokens * D * cfg.vocab_padded
+    flops = 3 * (layers + head) + (layers if remat else 0)
+    n_params = sum(int(p.numel()) for p in T.leaves(init_shapes(cfg)))
+    compute_ms = 1e3 * flops / BF16_OPS_PER_S
+    opt_ms = 1e3 * n_params * OPT_BYTES_PER_PARAM / HBM_BYTES_PER_S
+    return {"flops": flops, "compute_ms": compute_ms, "params": n_params,
+            "optimizer_bytes": n_params * OPT_BYTES_PER_PARAM, "optimizer_ms": opt_ms,
+            "bound_ms": compute_ms + opt_ms}
+
+
+def init_shapes(cfg):
+    """``cfg``'s param tree on the meta device (shapes only)."""
+    import torch
+    from repro_torch.models import init_model
+    return init_model(cfg, torch.Generator(), device="meta")
+
+
+def tree_bytes(tree):
+    from repro_torch import tree as T
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree) if hasattr(t, "numel"))
+
+
+def profile_train_step(params, opt_state, cfg, batch, step=5):
+    """One train step profiled in three parts, each inside a
+    ``record_function`` of its name and a profiler session of its own, the
+    device synchronised between them (the backward's kernels are issued by
+    autograd's device thread, outside any range of the caller's):
+    forward (``forward_for_grads``), backward (``grads_of``, the layers'
+    recompute under remat included) and optimizer (``apply_update``: the
+    cast, the clip, the schedule, AdamW), the three functions that
+    ``make_train_step`` runs. Returns each part's device busy ms and top
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import steps as ST
+    parts = {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with record_function(name):
+                out = fn()
+            torch.cuda.synchronize()
+        busy, top = device_time(prof, 1, 6)
+        parts[name] = {"device_busy_ms": busy, "top_kernels_ms": top}
+        return out, prof
+    (loss, _), _ = part("forward", lambda: ST.forward_for_grads(params, cfg, batch))
+    grads, bprof = part("backward", lambda: ST.grads_of(loss, params))
+    part("optimizer", lambda: ST.apply_update(params, grads, opt_state, step, cfg))
+    parts["backward"]["embedding_backward_ms"] = device_time(bprof, 1, 0, "embedding")[0]
+    return parts
+
+
+def embedding_backward_forms(cfg, B, S, reps=20):
+    """The token table's backward at the train step's shape, two ways:
+    ``F.embedding``'s (the port's) and the accumulating ``index_put_`` that
+    ``table[tokens]`` takes. Each run twice on the same cotangent (bitwise
+    equal or not) and timed (CUDA events, mean of ``reps``)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (B * S,), generator=gen, device=dev)
+    grad = torch.randn((B * S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    V = cfg.vocab_padded
+
+    def f_embedding():
+        return torch.ops.aten.embedding_dense_backward(grad, tokens, V, -1, False)
+
+    def index_put():
+        return torch.zeros((V, cfg.d_model), dtype=grad.dtype, device=dev).index_put_(
+            (tokens,), grad, accumulate=True)
+    out = {}
+    for name, fn in (("f_embedding", f_embedding), ("index_put_accumulate", index_put)):
+        a, b = fn(), fn()
+        out[name] = {"ms": time_ms(fn, reps), "repeat_bitwise": bool(torch.equal(a, b))}
+    return out
+
+
+def check_train():
+    """The training path (repro_torch.launch.train): tinyllama-1.1b at full
+    width and depth through the CLI, the card against the CPU at 2 layers
+    and for every other family at its smoke config, the crash drill and a
+    checkpoint round trip. Every kernel's launches are read around the
+    phase: the path runs none."""
+    import math
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import AsyncCheckpointer, load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as TR
+    from repro_torch.models import init_model
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import adamw_init
+    dev = torch.device("cuda")
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
+    laps, lap = lap_clock()
+    out = {}
+    free_device()
+
+    # a) full width and depth, through the CLI
+    cfg = get_config(TRAIN_ARCH)
+    init = T.leaves(TR.init_params(cfg, dev))
+    seen = {}
+
+    def watch(step, params, opt_state, metrics):
+        now = T.leaves(params)
+        if step == 0:
+            seen["unchanged"] = sum(bool(torch.equal(a, b)) for a, b in zip(now, init))
+        elif step == 1:
+            seen["changed"] = sum(not torch.equal(a, b) for a, b in zip(now, init))
+    torch.cuda.reset_peak_memory_stats()
+    rc, lines, recs = run_train_cli(TRAIN_ARGS, watch)
+    cli_peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"train: the CLI exited {rc}: {lines[-3:]}")
+    n_leaves = len(init)
+    del init
+    losses = [r["loss"] for r in recs]
+    check(len(recs) == TRAIN_STEPS and all(math.isfinite(x) and x < 2 * math.log(cfg.vocab)
+                                           for x in losses), f"train: losses {losses}")
+    check(recs[0]["lr"] == 0.0 and seen.get("unchanged") == n_leaves,
+          f"train: step 0 (lr {recs[0]['lr']}) left {seen.get('unchanged')} of "
+          f"{n_leaves} leaves unchanged")
+    check(seen.get("changed") == n_leaves,
+          f"train: step 1 changed {seen.get('changed')} of {n_leaves} leaves")
+    lap("cli")
+    free_device()
+    rc2, _, recs2 = run_train_cli(TRAIN_ARGS)
+    check(rc2 == 0 and [r["loss"] for r in recs2] == losses,
+          f"train: a second run's losses {[r['loss'] for r in recs2]} != {losses}")
+    lap("cli_again")
+    walls = [r["wall_ms"] for r in recs[2:] + recs2[2:]]
+    step_ms = float(np.median(walls))
+    bound = train_bound_ms(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out["full_width"] = {
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "batch": TRAIN_BATCH,
+                   "seq": TRAIN_SEQ, "dtype": cfg.dtype, "remat": cfg.remat},
+        "steps": [{k: r[k] for k in ("step", "loss", "gnorm", "lr", "wall_ms")} for r in recs],
+        "log": [l for l in lines if l.startswith("[train]")],
+        "second_run_bitwise": True, "step0_params_unchanged": True,
+        "step1_changed_leaves": seen["changed"],
+        "step_wall_ms_median": step_ms, "tok_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+        "cli_device_peak_bytes": cli_peak, "bound": bound}
+
+    # remat on and off: one step's loss and grads, and each step's peak
+    free_device()
+    params = TR.init_params(cfg, dev)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(ds).items()}
+    grads, peaks = {}, {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, loss, _, g = loss_and_grads(params, cfg.replace(remat=remat), batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        grads[remat] = (loss, g)
+        del g
+    (l_on, g_on), (l_off, g_off) = grads[True], grads[False]
+    remat_bitwise = bool(torch.equal(l_on, l_off)) and all(
+        torch.equal(a, b) for a, b in zip(g_on, g_off))
+    remat = {"bitwise": remat_bitwise, "loss": float(l_on),
+             "fwd_bwd_peak_bytes_over_params": {"remat": peaks[True], "no_remat": peaks[False]}}
+    if not remat_bitwise:
+        worst = max(leaf_errors(g_on, g_off))
+        check(abs(float(l_on) - float(l_off)) <= F32_LOSS * abs(float(l_off))
+              and worst <= F32_LEAF, f"train: remat on/off differ beyond the f32 rule "
+              f"(loss {float(l_on)} vs {float(l_off)}, a leaf {worst})")
+        remat["grad_leaf_rel_l2_max"] = worst
+    del grads, g_on, g_off
+    free_device()
+    opt_state = adamw_init(params)
+    resident = {"params": tree_bytes(params), "moments": tree_bytes(opt_state.mu)
+                + tree_bytes(opt_state.nu)}
+    step_peaks = {}
+    for remat_on in (True, False):
+        step_fn = ST.make_train_step(cfg.replace(remat=remat_on))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, m = step_fn(params, opt_state, batch, 5)
+        torch.cuda.synchronize()
+        step_peaks["remat" if remat_on else "no_remat"] = torch.cuda.max_memory_allocated()
+        check(math.isfinite(float(m["loss"])), "train: a step's loss is not finite")
+    remat["step_device_peak_bytes"] = step_peaks
+    out["full_width"]["remat"] = remat
+    out["full_width"]["resident_bytes"] = resident
+    lap("remat")
+
+    # one profiled step: forward, backward, optimizer
+    parts = profile_train_step(params, opt_state, cfg, batch)
+    busy = sum(p["device_busy_ms"] for p in parts.values())
+    check(busy > 0, "train: the profile holds no device time")
+    out["full_width"]["profile"] = {
+        "parts": parts, "device_busy_ms": busy, "step_wall_ms_median": step_ms,
+        "idle_share": 1 - busy / step_ms, "host_ms": step_ms - busy,
+        "embedding_backward_forms": embedding_backward_forms(cfg, TRAIN_BATCH, TRAIN_SEQ)}
+    del params, opt_state, batch, m
+    free_device()
+    lap("profile")
+
+    # b) card against CPU at 2 layers, f32
+    cfg2 = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_REFERENCE_LAYERS, dtype="float32")
+    B2, S2 = TRAIN_REFERENCE_SHAPE
+    cpu_params = TR.init_params(cfg2, "cpu")
+    card_params = tree_to(cpu_params, dev)
+    ds2 = SyntheticLM(vocab=cfg2.vocab, seq_len=S2, global_batch=B2, seed=1)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in next(ds2).items()}
+    card = loss_and_grads(card_params, cfg2, tree_to(cpu_batch, dev))
+    cpu = loss_and_grads(cpu_params, cfg2, cpu_batch)
+    ref = hold_f32_rule("train 2 layers", card, cpu)
+    # one update (the train step's apply_update) on identical grads: the
+    # CPU's, cast and clipped on each side
+    cpu_grads = list(cpu[3])
+    del card, cpu
+    states = {}
+    for name, p, d in (("card", card_params, dev), ("cpu", cpu_params, torch.device("cpu"))):
+        spec = T.flatten(p)[1]
+        g = T.unflatten(spec, [t.to(d) for t in cpu_grads])
+        opt = adamw_init(p)
+        before = [t.detach().clone() for t in T.leaves(p)]
+        _, opt, upd = ST.apply_update(p, g, opt, 5, cfg2)
+        states[name] = (upd["gnorm"], opt,
+                        [a.detach() - b for a, b in zip(T.leaves(p), before)])
+    gn_rel = abs(float(states["card"][0]) - float(states["cpu"][0])) / float(states["cpu"][0])
+    upd = max(leaf_errors(states["card"][2], states["cpu"][2]))
+    check(gn_rel <= F32_LOSS and upd <= F32_LEAF,
+          f"train: AdamW on identical grads: gnorm {gn_rel}, an update {upd} (rule {F32_LEAF})")
+    ref.update({"gnorm_rel": gn_rel, "adamw_update_rel_l2_max": upd,
+                "layers": TRAIN_REFERENCE_LAYERS, "batch": B2, "seq": S2})
+    out["reference"] = ref
+    card_state = {"params": card_params, "opt": states["card"][1], "data": ds2.state()}
+    del cpu_params, cpu_grads, states
+    lap("reference")
+
+    # c) every other family at its smoke config, one step, card against CPU
+    families = {}
+    for arch in TRAIN_FAMILIES:
+        fcfg = get_config(arch).smoke().replace(dtype="float32")
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        fp_cpu = init_model(fcfg, gen, device="cpu")
+        fp_card = tree_to(fp_cpu, dev)
+        fb = family_batch(fcfg)
+        row = hold_f32_rule(f"train {arch}", loss_and_grads(fp_card, fcfg, tree_to(fb, dev)),
+                            loss_and_grads(fp_cpu, fcfg, fb))
+        step_fn = ST.make_train_step(fcfg)
+        mc = step_fn(fp_card, adamw_init(fp_card), tree_to(fb, dev), 5)[2]
+        mp = step_fn(fp_cpu, adamw_init(fp_cpu), fb, 5)[2]
+        check(abs(float(mc["loss"]) - float(mp["loss"])) <= F32_LOSS * abs(float(mp["loss"])),
+              f"train {arch}: the step's loss {float(mc['loss'])} vs CPU {float(mp['loss'])}")
+        row["step_loss"] = float(mc["loss"])
+        if fcfg.family == "moe":
+            check(row["aux"] > 0, f"train {arch}: MoE aux {row['aux']}")
+        families[arch] = row
+    out["families"] = families
+    lap("families")
+
+    # d) the crash drill through the CLI, twice; a checkpoint round trip
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    resumed = []
+    for i in range(2):
+        d = str(root / f"drill{i}")
+        rc, lines, _ = run_train_cli(DRILL_ARGS + ["--ckpt-dir", d, "--fail-at-step", "7"])
+        check(rc == 42 and any("SIMULATED FAILURE at step 7" in l for l in lines),
+              f"train drill: the crash run exited {rc}: {lines[-2:]}")
+        rc, lines, recs = run_train_cli(DRILL_ARGS + ["--ckpt-dir", d])
+        text = "\n".join(lines)
+        check(rc == 0 and "resumed from checkpoint step 6" in text
+              and "done: 8 steps" in text, f"train drill: the resumed run: {lines}")
+        resumed.append([r["loss"] for r in recs])
+    check(resumed[0] == resumed[1], f"train drill: resumed losses differ: {resumed}")
+    ck = AsyncCheckpointer(root / "state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, card_state)
+    t1 = time.perf_counter()
+    ck.wait()
+    t2 = time.perf_counter()
+    loaded = load_checkpoint(root / "state", 1, card_state)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    a, b = T.leaves(card_state), T.leaves(loaded)
+    same = len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else bool(np.array_equal(x, y))
+        for x, y in zip(a, b))
+    check(same, "train: the checkpoint round trip is not bitwise")
+    out["checkpoint"] = {"drill_resumed_losses": resumed[0], "drills_bitwise": True,
+                         "state_bytes": tree_bytes(card_state), "leaves": len(a),
+                         "snapshot_ms": 1e3 * (t1 - t0), "write_s": t2 - t1,
+                         "load_s": t3 - t2, "round_trip_bitwise": True}
+    shutil.rmtree(root, ignore_errors=True)
+    del card_state, loaded, a, b
+    free_device()
+    lap("checkpoint")
+    launches = {k: c.launches for k, c in counters.items()}
+    check(not any(launches.values()), f"train: the path launched kernels: {launches}")
+    out["launches"] = launches
+    out["seconds"] = laps
+    return launches, out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("[chip_smoke] run from the root of a checkout: src/repro_torch "
@@ -4106,6 +4560,8 @@ def main() -> int:
         phase("vlm", card=card, **vlm)
         encdec_launches, encdec = check_encdec()
         phase("encdec", card=card, **encdec)
+        train_launches, train = check_train()
+        phase("train", card=card, **train)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4123,7 +4579,7 @@ def main() -> int:
                "gptpu": gptpu["launches"], "ops": ops_launches,
                "moe": moe_launches, "dense_configs": dense_launches,
                "hybrid": hybrid_launches, "xlstm": xlstm_launches, "vlm": vlm_launches,
-               "encdec": encdec_launches}
+               "encdec": encdec_launches, "train": train_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape
 

@@ -1,5 +1,6 @@
-"""Shared model layers: the W8A8 matmul, norms (RMSNorm, LayerNorm and
-qk_norm's head norm), the MLP (SwiGLU and GeLU), RoPE and M-RoPE, init.
+"""Shared model layers: the W8A8 matmul, the bf16 gradient barrier, norms
+(RMSNorm, LayerNorm and qk_norm's head norm), the MLP (SwiGLU and GeLU),
+RoPE and M-RoPE, init.
 
 The port of ``repro.models.layers``. Params are nested dicts
 of tensors; compute dtype is ``cfg.dtype`` (bf16) while norm and RoPE math
@@ -63,6 +64,26 @@ def pdot(x: torch.Tensor, w: Union[torch.Tensor, tz.QTensor],
                     sa=qx.scale.reshape(-1), out_dtype=cdtype(cfg))
         return out.reshape(*x.shape[:-1], out.shape[-1])
     return torch.matmul(x, w.to(cdtype(cfg)))
+
+
+class _BF16Grad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the cotangent's mantissa cut to bf16, in the primal's dtype
+        return g.to(torch.bfloat16).to(ctx.dtype)
+
+
+def bf16_grad(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the backward casts the cotangent to bf16 and back
+    to x's dtype, so activation gradients would cross a tensor-parallel
+    all-reduce in bf16 (the reference's ``custom_vjp`` of the same name,
+    which nothing in the reference calls either)."""
+    return _BF16Grad.apply(x)
 
 
 def init_norm(cfg: ArchConfig, d: int, device=None) -> Dict:

@@ -1,6 +1,6 @@
 """The LM of every family: init (also streamed and quantized layer by
 layer), the full-sequence forward (the dense families' fused prefill),
-logits.
+logits, and the differentiable training forward (``train_forward``).
 
 The port of ``repro.models.model``. Params are a nested dict with the JAX
 package's tree and shapes: ``embed`` (V_pad, D), ``final_ln``, ``lm_head``
@@ -27,9 +27,10 @@ it).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tensorizer as tz
@@ -484,3 +485,148 @@ def count_qtensors(params) -> int:
     if isinstance(params, dict):
         return sum(count_qtensors(v) for v in params.values())
     return int(isinstance(params, tz.QTensor))
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def _unstack(tree, n: int) -> List:
+    """A stacked tree (every leaf (n, ...)) as n per-layer trees of views,
+    by one ``unbind`` per leaf: its backward stacks the layers' grads in
+    one op, where indexing layer i would give each layer a full-size zero
+    grad of the stacked leaf to add."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    layers = torch.unbind(tree, 0)
+    if len(layers) != n:
+        raise ValueError(f"stacked leaf has {len(layers)} layers, expected {n}")
+    return list(layers)
+
+
+def _remat(fn: Callable, cfg: ArchConfig, *args):
+    """``fn(*args)``; with ``cfg.remat`` under activation checkpointing
+    (the reference's ``jax.checkpoint`` of each layer body): only the
+    body's inputs are kept, and the backward runs the body again."""
+    if cfg.remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _train_dense_layer(lp: Dict, x: torch.Tensor, cfg: ArchConfig,
+                       positions: torch.Tensor, positions3: Optional[torch.Tensor]):
+    """The reference's ``_dense_layer_fwd``: full-sequence attention (plain,
+    or the online softmax above ``attn_chunk``), then the MLP or the MoE
+    block's shared, dropping capacity. Returns ``(x, aux)``."""
+    x = x + A.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                        positions=positions, positions3=positions3)
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    if cfg.family == "moe":
+        y, aux = MOE.apply_moe(lp["moe"], h, cfg)
+    else:
+        y, aux = L.apply_mlp(lp["mlp"], h, cfg), x.new_zeros((), dtype=torch.float32)
+    return x + y, aux
+
+
+def _train_hybrid(params: Dict, cfg: ArchConfig, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_hybrid_forward``: each group (the shared block,
+    whose attention is the full-sequence kind with the application's LoRA
+    merged into W_q, then its mamba layers) as one remat body, then each
+    tail layer."""
+    hp = params["hybrid"]
+    G, rem = hybrid_layout(cfg)
+    shared = {"shared": hp["shared"], "lora": _unstack(hp["lora"], G)}
+    groups = [_unstack(g, cfg.attn_every) for g in _unstack(hp["groups"], G)]
+
+    def attend(ap, h):
+        return A.attention(ap, h, cfg, positions=positions)
+
+    def group(x, g, layers):
+        x = shared_block(shared, g, x, cfg, attend)
+        for lp in layers:
+            x = mamba_layer(lp, x, cfg)[0]
+        return x
+    for g in range(G):
+        x = _remat(group, cfg, x, g, groups[g])
+    for lp in (_unstack(hp["tail"], rem) if hp.get("tail") is not None else []):
+        x = _remat(lambda x, lp: mamba_layer(lp, x, cfg)[0], cfg, x, lp)
+    return x
+
+
+def _train_encdec(params: Dict, cfg: ArchConfig, frames: torch.Tensor,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_encdec_forward`` with a remat body per layer: the
+    bidirectional encoder over ``frames``, its final norm, then the causal
+    decoder over ``tokens`` (their f32 rows gathered, then cast, as the
+    reference's decoder does), cross-attending the encoder's output.
+    Returns the logits."""
+    x = frames.to(L.cdtype(cfg))
+    B, Se = x.shape[:2]
+    enc_pos = torch.arange(Se, dtype=torch.int32, device=x.device).expand(B, Se)
+
+    def enc(x, lp):
+        x = x + A.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                            positions=enc_pos, causal=False)
+        return x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    for lp in _unstack(params["encoder"], cfg.n_enc_layers):
+        x = _remat(enc, cfg, x, lp)
+    enc_out = L.apply_norm(params["enc_final_ln"], x, cfg)
+
+    x = torch.nn.functional.embedding(tokens.long(), params["embed"]).to(L.cdtype(cfg))
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+
+    def dec(x, lp, enc_out):
+        x = x + A.attention(lp["self_attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                            positions=positions)
+        kv = A.project_kv_for_cross(lp["cross_attn"], enc_out, cfg)
+        x = x + A.attention(lp["cross_attn"], L.apply_norm(lp["ln_x"], x, cfg), cfg,
+                            positions=positions, kv=kv)
+        return x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    for lp in _unstack(params["decoder"], cfg.n_layers):
+        x = _remat(dec, cfg, x, lp, enc_out)
+    return _logits(params, cfg, x)
+
+
+def train_forward(params: Dict, cfg: ArchConfig, batch: Dict) -> Tuple[torch.Tensor,
+                                                                        torch.Tensor]:
+    """The training forward, the reference's ``forward(params, cfg, batch)``
+    without ``return_kv``: differentiable, over the same param trees.
+    ``batch`` holds ``tokens`` (B, S), or ``embeds`` (B, S, D) (the vlm,
+    with ``positions3`` (3, B, S) under M-RoPE); the encdec takes both,
+    ``embeds`` its encoder's frames and ``tokens`` its decoder's input.
+    Returns ``(logits (B, S, V_pad), aux)``, aux the MoE load-balance loss
+    summed over layers (0 for the other families).
+
+    Attention is the full-sequence kind (``attention.attention``), not the
+    serving routes' one-query contractions, and MoE layers route with the
+    shared, dropping capacity. Token rows come from ``F.embedding`` of the
+    table cast to the compute dtype (the reference casts, then gathers):
+    its CUDA backward adds a repeated token's rows in a fixed order, so a
+    step's grads repeat bitwise. Every layer body runs under :func:`_remat`
+    when ``cfg.remat``."""
+    check_family(cfg)
+    if cfg.family == "encdec":
+        return (_train_encdec(params, cfg, batch["embeds"], batch["tokens"]),
+                params["embed"].new_zeros((), dtype=torch.float32))
+    if "embeds" in batch:
+        x = batch["embeds"].to(L.cdtype(cfg))
+    else:
+        x = torch.nn.functional.embedding(batch["tokens"].long(),
+                                          params["embed"].to(L.cdtype(cfg)))
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    aux = x.new_zeros((), dtype=torch.float32)
+    if cfg.family in DENSE_FAMILIES:
+        positions3 = batch.get("positions3")
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            x, a = _remat(_train_dense_layer, cfg, lp, x, cfg, positions, positions3)
+            aux = aux + a
+    elif cfg.family == "hybrid":
+        x = _train_hybrid(params, cfg, x, positions)
+    else:
+        for lp in _unstack(params["xlstm"]["pairs"], cfg.n_layers // 2):
+            x = _remat(lambda x, lp: xlstm_pair(lp, x, cfg)[0], cfg, x, lp)
+    return _logits(params, cfg, x), aux

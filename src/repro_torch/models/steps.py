@@ -1,5 +1,6 @@
-"""Serving step functions: plain callables (PyTorch runs eagerly, so there
-is nothing to jit).
+"""Step functions: plain callables (PyTorch runs eagerly, so there is
+nothing to jit). ``make_train_step`` is the training step (forward, CE
+loss, backward, grad clip, AdamW); the rest are the serving steps.
 
 Every admission and decode step takes an optional trailing ``sampling``
 (stacked ``serving/sampling.py`` params on the step's device). Without it
@@ -20,11 +21,15 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.models.attention import DecodeRows
 from repro_torch.models import serve as SV
+from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_schedule
 from repro_torch.serving import sampling as SMP
+
+AUX_WEIGHT = 0.01
 
 
 def _emit(cfg: ArchConfig, row: torch.Tensor, payload, sampling: Optional[Dict],
@@ -172,3 +177,81 @@ def make_embed_step(cfg: ArchConfig,
         idx = last_index.long()
         return hidden[rows, idx].to(torch.float32), logits[rows, idx].to(torch.float32)
     return embed_step
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean CE, logsumexp in f32 over the padded vocab (the padded
+    columns sit near -1e30 and add nothing)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict):
+    """``(loss, {"ce", "aux"})``: next-token CE (position t predicts label
+    t + 1) plus ``AUX_WEIGHT`` times the MoE load-balance loss."""
+    logits, aux = M.train_forward(params, cfg, batch)
+    ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    loss = ce + AUX_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def _cast_grads(grads, dtype_str: str):
+    """Every grad leaf in ``dtype_str`` (``cfg.grad_allreduce_dtype``: the
+    data-parallel reduction's dtype; AdamW's math stays f32)."""
+    dt = getattr(torch, dtype_str)
+    return T.tree_map(lambda g: g.to(dt), grads)
+
+
+def forward_for_grads(params: Dict, cfg: ArchConfig, batch: Dict):
+    """``loss_fn`` with autograd recording: the params (f32 leaves) are
+    marked as requiring grad. Returns ``(loss, {"ce", "aux"})``, the loss
+    still attached to its graph for ``grads_of``."""
+    for p in T.leaves(params):
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(params, cfg, batch)
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+def grads_of(loss: torch.Tensor, params: Dict) -> Dict:
+    """The grads of ``loss`` in the tree of ``params``, by one backward. A
+    leaf the forward does not reach (the vlm's token table) gets zeros, as
+    the reference's grad does."""
+    flat, spec = T.flatten(params)
+    return T.unflatten(spec, torch.autograd.grad(loss, flat, allow_unused=True,
+                                                 materialize_grads=True))
+
+
+def apply_update(params: Dict, grads: Dict, opt_state, step, cfg: ArchConfig):
+    """The update half of the step, in place: the grads cast to
+    ``cfg.grad_allreduce_dtype``, clipped to global norm ``cfg.grad_clip``,
+    the cosine lr of ``step`` (an int or an int32 tensor; 0 at step 0),
+    then AdamW with ``cfg.weight_decay``. Returns ``(params, opt_state,
+    {"gnorm", "lr"})``."""
+    grads = _cast_grads(grads, cfg.grad_allreduce_dtype)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    lr = cosine_schedule(torch.as_tensor(step, device=T.leaves(params)[0].device),
+                         peak=cfg.learning_rate)
+    params, opt_state = adamw_update(params, grads, opt_state, lr,
+                                     weight_decay=cfg.weight_decay)
+    return params, opt_state, {"gnorm": gnorm, "lr": lr}
+
+
+def make_train_step(cfg: ArchConfig) -> Callable:
+    """``train_step(params, opt_state, batch, step)`` ->
+    ``(params, opt_state, metrics)``: ``forward_for_grads``, ``grads_of``
+    and ``apply_update``, the params and moments updated in place.
+    ``metrics``: ``loss``, ``ce``, ``aux``, ``gnorm`` and ``lr``, 0-d f32
+    tensors on the params' device."""
+    def train_step(params: Dict, opt_state, batch: Dict, step):
+        loss, metrics = forward_for_grads(params, cfg, batch)
+        grads = grads_of(loss, params)
+        params, opt_state, upd = apply_update(params, grads, opt_state, step, cfg)
+        return params, opt_state, {"loss": loss.detach(), **metrics, **upd}
+    return train_step

@@ -46,6 +46,20 @@ def test_no_plain_fallback_in_except(path):
                 f"version from an except clause")
 
 
+TRAINING = ["optim", "data", "checkpoint", "ft"]
+
+
+@pytest.mark.parametrize("package", TRAINING)
+def test_guard_covers_the_training_packages(package):
+    """The training path's packages (their every module) and its CLI,
+    ``launch/train.py``, are under both guards above."""
+    root = REPO / "src" / "repro_torch" / package
+    mods = sorted(root.glob("*.py"))
+    assert root / "__init__.py" in mods and len(mods) >= 2
+    assert all(m in FILES for m in mods)
+    assert REPO / "src" / "repro_torch" / "launch" / "train.py" in FILES
+
+
 FLEET = [REPO / "src" / "repro_torch" / "serving" / f"{m}.py"
          for m in ("transport", "host_main", "router", "api")]
 
