@@ -193,11 +193,28 @@ seconds since the previous line):
                 steps", the resumed losses bitwise equal); the 2-layer
                 state's checkpoint round trip, bitwise (snapshot, write and
                 load times); no kernel launched
+ 26. dryrun   — the pod-scale accounting (repro_torch.launch.dryrun): the
+                CLI at full width on meta for tinyllama-1.1b, every shape,
+                quantize off and serve; then three tinyllama-1.1b cells at
+                full width and depth built on the card from the dry run's
+                meta arguments (train 8 x 128; W8A8 decode of 8 rows over a
+                2048-token cache; W8A8 prefill of 1 x 2048), each run once
+                under the accounting context: contraction FLOPs equal to
+                the meta count, qgemm's launches equal to its meta records,
+                argument bytes equal to the allocator's requested bytes,
+                the reckoned peak within 5% of max_memory_allocated; each
+                cell's wall and device busy time beside its bound; every
+                production cell's argument bytes against the card's memory
+ 27. distgemm — core.distributed_gemm at 16384^3, quantized (one qgemm
+                launch; its int32 sums torch._int_mm's, bitwise) and float;
+                qgemm at 16384^3 under a CUDA graph beside _int_mm's time
+                and its bound
 
 then the ``{"kernels": [...]}`` line (all five kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
 sampling, speculative, fleet (its in-process runs), gptpu, ops, moe,
-dense_configs, hybrid, xlstm, vlm, encdec and train (0 each); ``ms`` and
+dense_configs, hybrid, xlstm, vlm, encdec, train (0 each), dryrun and
+distgemm (qgemm only); ``ms`` and
 ``library_ms`` there are device times, from CUDA graphs) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits nonzero before the last
 line.
@@ -4478,6 +4495,311 @@ def check_train():
     return launches, out
 
 
+# ------------------------------------------------------ the dry run
+
+DRYRUN_ARCH = "tinyllama-1.1b"
+ALLOC_BLOCK = 512              # the caching allocator's rounding of a block
+PEAK_TOLERANCE = 0.05          # the reckoned peak against max_memory_allocated
+
+
+def dryrun_card_cells():
+    """The card's dry-run cells at full width and depth, sized to fit one
+    card: the train CLI's default step (8 x 128), W8A8 decode of 8 rows over a
+    2048-token contiguous cache, W8A8 prefill of 1 x 2048."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    cfg = get_config(DRYRUN_ARCH)
+    w8a8 = cfg.replace(quantize="serve")
+    return [("train", cfg, ShapeCfg("card_train_8x128", 128, 8, "train")),
+            ("decode", w8a8, ShapeCfg("card_decode_8x2048", 2048, 8, "decode")),
+            ("prefill", w8a8, ShapeCfg("card_prefill_1x2048", 2048, 1, "prefill"))]
+
+
+def on_card(tree, vocab, gen, cache_index):
+    """A meta tree of the dry run's arguments, allocated on the card leaf by
+    leaf (``torch.empty``, so each allocation is the leaf's own bytes) and
+    filled in place: float leaves N(0, 0.02^2), int8 codes uniform, f32
+    scales in [1e-4, 1e-3], token ids below the vocab, the AdamW moments and
+    step 0, a cache index at ``cache_index``."""
+    import torch
+    from repro_torch.core import tensorizer as tz
+
+    def leaf(t, name):
+        x = torch.empty(tuple(t.shape), dtype=t.dtype, device="cuda")
+        if name == "index":
+            return x.fill_(cache_index)
+        if name in ("mu", "nu", "step"):
+            return x.zero_()
+        if t.dtype == torch.int8:
+            return x.random_(-127, 128, generator=gen)
+        if t.dtype in (torch.int32, torch.int64):
+            return x.random_(0, vocab, generator=gen)
+        if name == "scale":
+            return x.uniform_(1e-4, 1e-3, generator=gen)
+        return x.normal_(0.0, 0.02, generator=gen)
+
+    def walk(t, name=""):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(v, k if name not in ("mu", "nu") else name) for k, v in t.items()}
+        if isinstance(t, tz.QTensor):
+            return tz.QTensor(walk(t.q, "q"), walk(t.scale, "scale"), t.meta_shape)
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(getattr(t, f), f) for f in t._fields))
+        if isinstance(t, tuple):
+            return tuple(walk(v, name) for v in t)
+        return leaf(t, name)
+    return walk(tree)
+
+
+def leaf_tensors(tree):
+    from repro_torch import tree as T
+    from repro_torch.core import tensorizer as tz
+    out = []
+    for t in T.leaves(tree):
+        out += [t.q, t.scale] if isinstance(t, tz.QTensor) else [t]
+    return [t for t in out if hasattr(t, "untyped_storage")]
+
+
+def cell_bound(flops_by_type, moved_bytes):
+    """(least ms, "bytes" or "operations"): the int8 kernel FLOPs at the
+    int8 peak, bf16 contractions at the bf16 peak, f32 ones at the f32 peak
+    outside the tensor cores; the arguments read and outputs written once."""
+    rates = {"int8": INT8_OPS_PER_S, "bfloat16": BF16_OPS_PER_S,
+             "float32": F32_OPS_PER_S}
+    t_ops = sum(f / rates[k] for k, f in flops_by_type.items())
+    t_bytes = moved_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def grid_fit(total_memory):
+    """Each cell of the reference's production grid (every arch x shape,
+    quantize off) on meta: its argument bytes on one device and whether they
+    fit this card's memory."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import steps as ST
+    rows = {}
+    with shd.use_mesh(shd.Mesh((1,), ("data",), torch.device("meta"))):
+        for arch in ARCH_IDS:
+            cfg = get_config(arch)
+            params, pspecs = ST.param_sds(cfg)
+            p_bytes = D.tree_bytes(params)
+            o_bytes = D.tree_bytes(ST.opt_sds(cfg, params, pspecs)[0])
+            for shape in SHAPES:
+                if shape.name == "long_500k" and not cfg.sub_quadratic:
+                    rows[f"{arch}/{shape.name}"] = {"skipped": D.LONG_SKIP}
+                    continue
+                n = p_bytes + D.tree_bytes(ST.batch_specs(cfg, shape)[0])
+                if shape.kind == "train":
+                    n += o_bytes
+                if shape.kind == "decode":
+                    n += D.tree_bytes(ST.cache_specs(cfg, shape)[0])
+                rows[f"{arch}/{shape.name}"] = {"argument_bytes": n,
+                                                "fits": n <= total_memory}
+    return rows
+
+
+def check_dryrun():
+    """The pod-scale accounting on one card. The dry-run CLI at full width
+    on meta (tinyllama-1.1b, every shape, quantize off and serve); then
+    three cells built on the card from the dry run's own meta arguments and
+    run once under the accounting context: contraction FLOPs equal to the
+    meta count, qgemm's records equal to its launches, argument bytes equal
+    to the allocator's requested bytes, the reckoned peak within 5% of
+    max_memory_allocated; each cell's wall and device time beside its bound.
+    Then every production cell's argument bytes against this card's memory."""
+    import contextlib
+    import io
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.accounting import Accounting
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun as D
+    out = {}
+    laps, lap = lap_clock()
+    cli = {}
+    for quantize in ("off", "serve"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = D.main(["--arch", DRYRUN_ARCH, "--shape", "all", "--quantize", quantize,
+                         "--out", str(ROOT / "build" / "dryrun_torch")])
+        check(rc == 0, f"dryrun CLI (quantize {quantize}) exited {rc}: {buf.getvalue()}")
+        cli[quantize] = buf.getvalue().splitlines()
+        for line in cli[quantize]:
+            print(line, flush=True)
+    out["cli"] = cli
+    lap("cli")
+    counters = all_counters()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    launches = {k: 0 for k in counters}
+    cells = {}
+    for name, cfg, shape in dryrun_card_cells():
+        with shd.use_mesh(shd.Mesh((1,), ("data",), torch.device("meta"))):
+            meta = D.count_step(cfg, shape)
+            fn, args, _ = D.build_cell(cfg, shape)
+        free_device()
+        torch.cuda.synchronize()
+        stats0 = torch.cuda.memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        card_args = on_card(args, cfg.vocab, gen, shape.seq_len - 1)
+        torch.cuda.synchronize()
+        requested = (torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+                     - stats0["requested_bytes.all.current"])
+        allocated = torch.cuda.memory_allocated(dev) - base
+        leaves = leaf_tensors(card_args)
+        rounded = sum(-(-t.untyped_storage().nbytes() // ALLOC_BLOCK) * ALLOC_BLOCK
+                      for t in {id(t.untyped_storage()): t for t in leaves}.values())
+        arg_bytes = meta["memory"]["argument_size_in_bytes"]
+        check(requested == arg_bytes,
+              f"dryrun {name}: the card's requested argument bytes {requested} != the "
+              f"meta count {arg_bytes}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        with shd.use_mesh(shd.Mesh((1,), ("data",), dev)):
+            with Accounting() as acc:
+                res = fn(*card_args)
+            torch.cuda.synchronize()
+        counted = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        q_records = meta["kernels"].get("qgemm", {}).get("calls", 0)
+        check(acc.flops == meta["flops"],
+              f"dryrun {name}: card FLOPs {acc.flops} != meta FLOPs {meta['flops']}")
+        check(counted["qgemm"] == q_records == acc.kernel_calls("qgemm"),
+              f"dryrun {name}: qgemm launched {counted['qgemm']} times, meta recorded "
+              f"{q_records}")
+        check(all(v == 0 for k, v in counted.items() if k != "qgemm"),
+              f"dryrun {name}: another kernel launched: {counted}")
+        reckoned = meta["memory"]["peak_bytes"]
+        rel = abs(reckoned - peak) / peak
+        check(rel <= PEAK_TOLERANCE,
+              f"dryrun {name}: reckoned peak {reckoned} vs measured {peak} ({rel:.3%})")
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in leaf_tensors(res)
+                     if t.is_floating_point())
+        check(finite, f"dryrun {name}: non-finite outputs")
+        del res
+        # timed without the accounting context: wall and device busy time
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn(*card_args)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        busy_ms, top = device_time(prof, 1, 5)
+        for k, c in counters.items():
+            launches[k] += counted[k] + c.launches
+        by_type = {k: v for k, v in acc.flops_by_dtype.items()}
+        for k, rec in acc.kernels.items():
+            by_type["int8"] = by_type.get("int8", 0) + rec["flops"]
+        moved = arg_bytes + meta["memory"]["output_size_in_bytes"]
+        bound_ms, bound_by = cell_bound(by_type, moved)
+        cells[name] = {
+            "shape": [shape.global_batch, shape.seq_len], "quantize": cfg.quantize,
+            "flops_card": acc.flops, "flops_meta": meta["flops"], "flops_equal": True,
+            "flops_by_type": by_type, "kernels": acc.kernels,
+            "qgemm_launches": counted["qgemm"], "qgemm_records_meta": q_records,
+            "bytes_accessed_meta": meta["bytes_accessed"],
+            "bytes_accessed_card": acc.bytes_accessed,
+            "argument_bytes": arg_bytes, "requested_delta": requested,
+            "allocated_delta": allocated, "allocated_rounded_sum": rounded,
+            "peak_reckoned": reckoned, "peak_measured": peak, "peak_rel_diff": rel,
+            "peak_tracked_on_card": arg_bytes + acc.peak_bytes,
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms, "top_kernels_ms": top,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "eager_bytes_ms": 1e3 * meta["bytes_accessed"] / HBM_BYTES_PER_S,
+            "wall_over_bound": wall_ms / bound_ms}
+        del res, card_args, leaves, fn, args
+        free_device()
+        lap(name)
+    out["cells"] = cells
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out["grid_fit"] = {"total_memory": total, "cells": grid_fit(total)}
+    lap("grid_fit")
+    out["launches"] = launches
+    out["seconds"] = laps
+    return launches, out
+
+
+DISTGEMM_N = 16384
+EXACT_K = 1024                 # K * 127^2 < 2^24: the f32 of each int32 sum is exact
+
+
+def check_distgemm(dev):
+    """``core.distributed_gemm`` at 16384^3 on the card, quantized (one
+    qgemm launch) and float (``a @ b``). The quantized result's int32
+    accumulation is ``torch._int_mm``'s on the same int8 operands: the
+    whole-K f32 of qgemm's sums bitwise the cast of _int_mm's, the result
+    bitwise the reference's dequant of _int_mm's sums, and at K = 1024 (where
+    the f32 of every sum is exact) qgemm's sums bitwise _int_mm's int32.
+    Then qgemm at 16384^3 timed with CUDA graphs beside _int_mm's and its
+    bound."""
+    import torch
+    from repro_torch.core import distributed_gemm as DG
+    from repro_torch.core import tensorizer as tz
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import qgemm as tq
+    from repro_torch.launch.mesh import make_smoke_mesh
+    n = DISTGEMM_N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, n), generator=gen, device=dev) * 0.1
+    counters = all_counters()
+    for c in counters.values():
+        c.launches = 0
+    with shd.use_mesh(make_smoke_mesh(1, dev)):
+        quant = DG.distributed_gemm(a, b, quantized=True)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        flt = DG.distributed_gemm(a, b, quantized=False)
+    check(launches["qgemm"] == 1 and sum(launches.values()) == 1,
+          f"distgemm: launches {launches}")
+    qa, qb = tz.quantize(a), tz.quantize(b, axis=(0,))
+    ones = torch.ones(n, device=dev)
+    acc_i = torch._int_mm(qa.q, qb.q)
+    acc_k = tq.qgemm(qa.q, qb.q, ones)
+    whole = bool(torch.equal(acc_k, acc_i.to(torch.float32)))
+    check(whole, "distgemm: qgemm's f32 sums differ from torch._int_mm's cast")
+    ref = acc_i.to(torch.float32) * qa.scale * qb.scale.reshape(-1)
+    check(torch.equal(quant, ref), "distgemm: the quantized result is not the "
+          "reference's dequant of torch._int_mm's sums")
+    a_k, b_k = qa.q[:, :EXACT_K].contiguous(), qb.q[:EXACT_K].contiguous()
+    exact_i = torch._int_mm(a_k, b_k)
+    exact_k = tq.qgemm(a_k, b_k, ones)
+    exact = bool(torch.equal(exact_k.to(torch.int32), exact_i)
+                 and exact_i.abs().max().item() < 2 ** 24)
+    check(exact, "distgemm: qgemm's int32 sums differ from torch._int_mm's at K = 1024")
+    quant_err = ((quant - flt).abs().max() / flt.abs().max()).item()
+    finite = bool(torch.isfinite(quant).all() and torch.isfinite(flt).all())
+    check(finite, "distgemm: non-finite results")
+    del quant, flt, ref, acc_i, acc_k, exact_i, exact_k
+    graph_k = graph_ms(lambda: tq.qgemm(qa.q, qb.q, ones), 3)
+    graph_lib = graph_ms(lambda: torch._int_mm(qa.q, qb.q), 3)
+    eager_k = time_ms(lambda: tq.qgemm(qa.q, qb.q, ones), 3)
+    plain_ms = time_ms(lambda: tq.qgemm_plain(qa.q, qb.q, ones), 1)
+    bound_ms, bound_by = qgemm_bound(n, n, n, out_bytes=4)
+    del a, b, qa, qb
+    free_device()
+    for c in counters.values():
+        c.launches = 0
+    return launches, {
+        "shape": [n, n, n], "launches": launches, "whole_k_f32_bitwise_int_mm": whole,
+        "dequant_bitwise": True, "k1024_int32_bitwise_int_mm": exact,
+        "w8a8_rel_max_err_vs_float": quant_err,
+        "qgemm_graph_ms": graph_k, "qgemm_eager_ms": eager_k, "plain_ms": plain_ms,
+        "int_mm_graph_ms": graph_lib, "qgemm_over_int_mm": graph_k / graph_lib,
+        "bound_ms": bound_ms, "bound_by": bound_by, "qgemm_over_bound": graph_k / bound_ms,
+        "plan": plan_of(tq, n, n, n, sms_of(dev))}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("[chip_smoke] run from the root of a checkout: src/repro_torch "
@@ -4562,6 +4884,10 @@ def main() -> int:
         phase("encdec", card=card, **encdec)
         train_launches, train = check_train()
         phase("train", card=card, **train)
+        dryrun_launches, dryrun = check_dryrun()
+        phase("dryrun", card=card, **dryrun)
+        distgemm_launches, distgemm = check_distgemm(dev)
+        phase("distgemm", card=card, **distgemm)
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4579,7 +4905,8 @@ def main() -> int:
                "gptpu": gptpu["launches"], "ops": ops_launches,
                "moe": moe_launches, "dense_configs": dense_launches,
                "hybrid": hybrid_launches, "xlstm": xlstm_launches, "vlm": vlm_launches,
-               "encdec": encdec_launches, "train": train_launches}
+               "encdec": encdec_launches, "train": train_launches,
+               "dryrun": dryrun_launches, "distgemm": distgemm_launches}
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape
 

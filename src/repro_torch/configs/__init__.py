@@ -5,7 +5,7 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import ArchConfig  # noqa: F401
+from repro_torch.configs.base import ArchConfig, SHAPES, ShapeCfg, shape_by_name  # noqa: F401
 
 ARCH_IDS: List[str] = [
     "moonshot_v1_16b_a3b",

@@ -13,6 +13,30 @@ from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+# The assigned LM shape set (identical across the 10 archs).
+SHAPES: Tuple[ShapeCfg, ...] = (
+    ShapeCfg("train_4k", 4096, 256, "train"),
+    ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    ShapeCfg("decode_32k", 32768, 128, "decode"),
+    ShapeCfg("long_500k", 524288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeCfg:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                    # dense | moe | hybrid | ssm | encdec | vlm
@@ -76,6 +100,10 @@ class ArchConfig:
         columns are masked to -inf in the head."""
         return ((self.vocab + 15) // 16) * 16
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -100,3 +128,43 @@ class ArchConfig:
             attn_chunk=16,
             mrope_sections=(2, 3, 3),
         )
+
+    # ------------------------------------------------------------------
+    # analytics: the reference's formulas, approximation included
+    # ------------------------------------------------------------------
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + stacked blocks), the
+        reference's formula: it leaves out norms, the MoE's shared-expert
+        width, the hybrid's LoRA and the xlstm's gates, so it is not the
+        size of ``init_model``'s tree."""
+        D, H, KV, hd, F, V, L = (self.d_model, self.n_heads, self.n_kv,
+                                 self.hd, self.d_ff, self.vocab, self.n_layers)
+        attn = D * H * hd + 2 * D * KV * hd + H * hd * D
+        mlp = 3 * D * F if self.act == "swiglu" else 2 * D * F
+        if self.family == "moe":
+            mlp = (self.n_experts + self.n_shared_experts) * mlp + D * self.n_experts
+        if self.family == "ssm":
+            di = self.ssm_expand * D
+            per_layer = 2 * (D * di) + di * D
+        elif self.family == "hybrid":
+            di = self.ssm_expand * D
+            nh = di // self.ssm_headdim
+            per_layer = D * (2 * di + 2 * self.ssm_state + nh) + di * D
+        else:
+            per_layer = attn + mlp
+        total = L * per_layer + V * D * (1 if self.tie_embeddings else 2)
+        if self.is_encdec:
+            total += self.n_enc_layers * (attn + mlp)
+        if self.attn_every:
+            total += attn + 3 * D * self.d_ff  # one shared attn+mlp block
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active (per-token) params: MoE counts topk + shared experts."""
+        if self.family != "moe":
+            return self.param_count()
+        D, F, L = self.d_model, self.d_ff, self.n_layers
+        mlp_all = (self.n_experts + self.n_shared_experts) * 3 * D * F
+        mlp_act = (self.topk + self.n_shared_experts) * 3 * D * F
+        return int(self.param_count() - L * (mlp_all - mlp_act))

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -126,33 +127,41 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            index: torch.Tensor) -> torch.Tensor:
     """See module docstring. CPU tensors take the plain version; CUDA tensors
     launch the kernel on the current stream (two launches where the plan
-    splits the table, counted as one call)."""
+    splits the table, counted as one call); meta tensors launch nothing.
+    The call is recorded with the accounting context from the shapes: the
+    score and value contractions over every table entry, each row's blocks
+    of K and V read once."""
     _check(q, k_pool, v_pool, tables, index)
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, tables, index)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     B, H, hd = q.shape
     NB, bs, KV, _ = k_pool.shape
     MB = tables.shape[1]
-    lanes = lanes_per_row(hd, k_pool.dtype)
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_decode_attention: the CUDA kernel needs 16-byte "
-                         "aligned pools")
-    p = plan(MB, bs, H, KV)
-    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    partial = (torch.empty(B * H * p.splits * (hd + 2), dtype=torch.float32,
-                           device=q.device) if p.splits > 1 else None)
-    lib = _build.library("paged_attention")
-    err = lib.paged_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        index.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
-        B, H, KV, hd, bs, MB, NB, int(k_pool.dtype == torch.bfloat16), p.splits,
-        p.per, min(p.heads, lanes), hd ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
-    return out
+    kv_bytes = 2 * B * MB * bs * KV * hd * k_pool.element_size()
+    nbytes = 2 * accounting.tensor_bytes(q) + kv_bytes + 4 * B * MB + 4 * B
+    with accounting.kernel("paged_decode_attention", 4 * B * H * MB * bs * hd, nbytes):
+        if q.device.type == "cpu":
+            return paged_decode_attention_plain(q, k_pool, v_pool, tables, index)
+        if q.device.type == "meta":
+            return torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+        if q.device.type != "cuda":
+            raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+        lanes = lanes_per_row(hd, k_pool.dtype)
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+            raise ValueError("paged_decode_attention: the CUDA kernel needs 16-byte "
+                             "aligned pools")
+        p = plan(MB, bs, H, KV)
+        out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+        partial = (torch.empty(B * H * p.splits * (hd + 2), dtype=torch.float32,
+                               device=q.device) if p.splits > 1 else None)
+        lib = _build.library("paged_attention")
+        err = lib.paged_attention_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            index.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
+            B, H, KV, hd, bs, MB, NB, int(k_pool.dtype == torch.bfloat16), p.splits,
+            p.per, min(p.heads, lanes), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "paged_decode_attention")
+        paged_decode_attention.launches += 1
+        return out
 
 
 paged_decode_attention.launches = 0

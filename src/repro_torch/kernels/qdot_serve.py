@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build
 
 BN = 256        # N must be a multiple of this (the Pallas kernel's stripe)
@@ -123,26 +124,31 @@ def _check(x, w_q, scale) -> None:
 
 def qgemv(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """See module docstring. CPU tensors take the plain version; CUDA tensors
-    launch the kernel on the current stream."""
+    launch the kernel on the current stream; meta tensors launch nothing
+    (the call is recorded with the accounting context either way)."""
     _check(x, w_q, scale)
-    if x.device.type == "cpu":
-        return qgemv_plain(x, w_q, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"qgemv: unsupported device {x.device}")
-    if w_q.data_ptr() % 4:
-        raise ValueError("qgemv: w_q must be 4-byte aligned")
     B, K = x.shape
     N = w_q.shape[1]
-    p = plan(B, K, N, _sm_count(x.device.index))
-    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    lib = _build.library("qgemv")
-    err = lib.qgemv_launch(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), B, K, N,
-        p.rb, p.tn, p.cluster, p.depth,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "qgemv")
-    qgemv.launches += 1
-    return out
+    nbytes = sum(accounting.tensor_bytes(t) for t in (x, w_q, scale)) + 4 * B * N
+    with accounting.kernel("qgemv", 2 * B * K * N, nbytes):
+        if x.device.type == "cpu":
+            return qgemv_plain(x, w_q, scale)
+        if x.device.type == "meta":
+            return torch.empty((B, N), dtype=torch.float32, device=x.device)
+        if x.device.type != "cuda":
+            raise ValueError(f"qgemv: unsupported device {x.device}")
+        if w_q.data_ptr() % 4:
+            raise ValueError("qgemv: w_q must be 4-byte aligned")
+        p = plan(B, K, N, _sm_count(x.device.index))
+        out = torch.empty((B, N), dtype=torch.float32, device=x.device)
+        lib = _build.library("qgemv")
+        err = lib.qgemv_launch(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), B, K, N,
+            p.rb, p.tn, p.cluster, p.depth,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "qgemv")
+        qgemv.launches += 1
+        return out
 
 
 qgemv.launches = 0

@@ -14,6 +14,13 @@ function. ``a_q`` is (M, K) int8, ``b_q`` (K, N) int8 in its public layout,
 ``sb`` (N,) f32, ``sa`` (M,) f32. Ragged M, N and K are masked in the kernel;
 the Pallas kernel asserted block alignment instead.
 
+Every wrapper here records its call with the accounting context
+(``repro_torch.accounting.kernel``: 2MNK FLOPs and its operand and result
+bytes). For meta tensors (the dry run) it returns an empty result of the
+output's shape and dtype, allocating what the card's call allocates
+(``qgemm``'s split scratch, planned for the H100's SMs), and launches
+nothing.
+
 ``qgemm_tile_scales`` replaces ``repro/kernels/qgemm.py::qgemm_tile_scales``,
 the blocked product of tpuGemm's FullyConnected lowering::
 
@@ -42,6 +49,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -49,6 +57,7 @@ TILE = 128
 KSTEP = 32          # k depth of one pipeline stage: a split is whole stages
 DECODE_M = 16       # M up to this takes the decode regime
 BLOCKS_PER_SM = 2   # the plan splits K until the grid holds this many per SM
+H100_SMS = 132      # the plan's SM count for meta tensors (the dry run)
 
 # Output tiles of the CUDA kernel, (config id, rows, columns), widest first:
 # the ids are those of csrc/qgemm.cu's qgemm_launch.
@@ -152,33 +161,49 @@ def _check(a_q, b_q, sb, sa, out_dtype) -> None:
         raise ValueError("qgemm: operands must be contiguous")
 
 
+def _io_bytes(*tensors) -> int:
+    return sum(accounting.tensor_bytes(t) for t in tensors if t is not None)
+
+
+def _outputs(M: int, K: int, N: int, out_dtype: torch.dtype, device, sms: int):
+    """The launch plan, the (M, N) result and each split's int32 sums
+    (None unsplit), allocated on ``device``."""
+    p = plan(M, K, N, sms)
+    out = torch.empty((M, N), dtype=out_dtype, device=device)
+    # each split's int32 sums, added by the kernel's second pass
+    partial = (torch.empty((p.splits, M, N), dtype=torch.int32, device=device)
+               if p.splits > 1 else None)
+    return p, out, partial
+
+
 def qgemm(a_q: torch.Tensor, b_q: torch.Tensor, sb: torch.Tensor,
           sa: Optional[torch.Tensor] = None,
           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """See module docstring. CPU tensors take the plain version; CUDA tensors
-    launch the kernel on the current stream."""
+    launch the kernel on the current stream; meta tensors launch nothing."""
     _check(a_q, b_q, sb, sa, out_dtype)
-    if a_q.device.type == "cpu":
-        return qgemm_plain(a_q, b_q, sb, sa, out_dtype)
-    if a_q.device.type != "cuda":
-        raise ValueError(f"qgemm: unsupported device {a_q.device}")
     M, K = a_q.shape
     N = b_q.shape[1]
-    p = plan(M, K, N, _sm_count(a_q.device.index))
-    out = torch.empty((M, N), dtype=out_dtype, device=a_q.device)
-    # each split's int32 sums, added by the kernel's second pass
-    partial = (torch.empty((p.splits, M, N), dtype=torch.int32, device=a_q.device)
-               if p.splits > 1 else None)
-    lib = _build.library("qgemm")
-    err = lib.qgemm_launch(
-        a_q.data_ptr(), b_q.data_ptr(), sb.data_ptr(),
-        sa.data_ptr() if sa is not None else None, out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        M, N, K, int(out_dtype == torch.bfloat16), p.config, p.kchunk, p.splits,
-        torch.cuda.current_stream(a_q.device).cuda_stream)
-    _build.check(err, "qgemm")
-    qgemm.launches += 1
-    return out
+    out_bytes = M * N * torch.finfo(out_dtype).bits // 8
+    with accounting.kernel("qgemm", 2 * M * N * K, _io_bytes(a_q, b_q, sb, sa) + out_bytes):
+        if a_q.device.type == "cpu":
+            return qgemm_plain(a_q, b_q, sb, sa, out_dtype)
+        if a_q.device.type == "meta":
+            return _outputs(M, K, N, out_dtype, a_q.device, H100_SMS)[1]
+        if a_q.device.type != "cuda":
+            raise ValueError(f"qgemm: unsupported device {a_q.device}")
+        p, out, partial = _outputs(M, K, N, out_dtype, a_q.device,
+                                   _sm_count(a_q.device.index))
+        lib = _build.library("qgemm")
+        err = lib.qgemm_launch(
+            a_q.data_ptr(), b_q.data_ptr(), sb.data_ptr(),
+            sa.data_ptr() if sa is not None else None, out.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            M, N, K, int(out_dtype == torch.bfloat16), p.config, p.kchunk, p.splits,
+            torch.cuda.current_stream(a_q.device).cuda_stream)
+        _build.check(err, "qgemm")
+        qgemm.launches += 1
+        return out
 
 
 qgemm.launches = 0
@@ -228,25 +253,29 @@ def _check_tile_scales(a_q, b_q, sa, sb) -> None:
 def qgemm_tile_scales(a_q: torch.Tensor, b_q: torch.Tensor, sa: torch.Tensor,
                       sb: torch.Tensor) -> torch.Tensor:
     """See module docstring. CPU tensors take the plain version; CUDA tensors
-    launch the kernel on the current stream."""
+    launch the kernel on the current stream; meta tensors launch nothing."""
     _check_tile_scales(a_q, b_q, sa, sb)
-    if a_q.device.type == "cpu":
-        return qgemm_tile_scales_plain(a_q, b_q, sa, sb)
-    if a_q.device.type != "cuda":
-        raise ValueError(f"qgemm_tile_scales: unsupported device {a_q.device}")
-    if a_q.data_ptr() % 16 or b_q.data_ptr() % 16:
-        raise ValueError("qgemm_tile_scales: a_q and b_q must be 16-byte aligned")
     M, K = a_q.shape
     N = b_q.shape[1]
-    out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
-    lib = _build.library("qgemm_tile_scales")
-    err = lib.qgemm_tile_scales_launch(
-        a_q.data_ptr(), b_q.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
-        M, N, K, int(tile_scales_narrow(M, N, _sm_count(a_q.device.index))),
-        torch.cuda.current_stream(a_q.device).cuda_stream)
-    _build.check(err, "qgemm_tile_scales")
-    qgemm_tile_scales.launches += 1
-    return out
+    with accounting.kernel("qgemm_tile_scales", 2 * M * N * K,
+                           _io_bytes(a_q, b_q, sa, sb) + 4 * M * N):
+        if a_q.device.type == "cpu":
+            return qgemm_tile_scales_plain(a_q, b_q, sa, sb)
+        if a_q.device.type == "meta":
+            return torch.empty((M, N), dtype=torch.float32, device=a_q.device)
+        if a_q.device.type != "cuda":
+            raise ValueError(f"qgemm_tile_scales: unsupported device {a_q.device}")
+        if a_q.data_ptr() % 16 or b_q.data_ptr() % 16:
+            raise ValueError("qgemm_tile_scales: a_q and b_q must be 16-byte aligned")
+        out = torch.empty((M, N), dtype=torch.float32, device=a_q.device)
+        lib = _build.library("qgemm_tile_scales")
+        err = lib.qgemm_tile_scales_launch(
+            a_q.data_ptr(), b_q.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
+            M, N, K, int(tile_scales_narrow(M, N, _sm_count(a_q.device.index))),
+            torch.cuda.current_stream(a_q.device).cuda_stream)
+        _build.check(err, "qgemm_tile_scales")
+        qgemm_tile_scales.launches += 1
+        return out
 
 
 qgemm_tile_scales.launches = 0

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import accounting
 from repro_torch.kernels import _build
 
 WARPS = 4           # warps per block (the kernel's WARPS)
@@ -93,22 +94,27 @@ def _check(x, w) -> None:
 
 def stencil3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """See module docstring. CPU tensors take the plain version; CUDA tensors
-    launch the kernel on the current stream."""
+    launch the kernel on the current stream; meta tensors launch nothing
+    (the call is recorded with the accounting context either way: 18 FLOPs
+    a cell, a convolution's count)."""
     _check(x, w)
-    if x.device.type == "cpu":
-        return stencil3x3_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"stencil3x3: unsupported device {x.device}")
     H, W = x.shape
-    p = plan(H, W, x.data_ptr() % 16 == 0, _sm_count(x.device.index))
-    out = torch.empty((H, W), dtype=torch.float32, device=x.device)
-    lib = _build.library("stencil3x3")
-    err = lib.stencil3x3_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), H, W,
-                                p.width, p.rows,
-                                torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "stencil3x3")
-    stencil3x3.launches += 1
-    return out
+    with accounting.kernel("stencil3x3", 18 * H * W, 8 * H * W + 36):
+        if x.device.type == "cpu":
+            return stencil3x3_plain(x, w)
+        if x.device.type == "meta":
+            return torch.empty((H, W), dtype=torch.float32, device=x.device)
+        if x.device.type != "cuda":
+            raise ValueError(f"stencil3x3: unsupported device {x.device}")
+        p = plan(H, W, x.data_ptr() % 16 == 0, _sm_count(x.device.index))
+        out = torch.empty((H, W), dtype=torch.float32, device=x.device)
+        lib = _build.library("stencil3x3")
+        err = lib.stencil3x3_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), H, W,
+                                    p.width, p.rows,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "stencil3x3")
+        stencil3x3.launches += 1
+        return out
 
 
 stencil3x3.launches = 0

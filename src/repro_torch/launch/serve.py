@@ -65,6 +65,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models.model import count_qtensors
 from repro_torch.serving.api import serve_api
 from repro_torch.serving.engine import SERVED_FAMILIES, Engine, EngineConfig, Request
@@ -171,6 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "synthetic traffic (0 = a port the OS picks, -1 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for tests)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the model axis of the smoke mesh (launch/mesh.py): one card "
+                         "has none, so the mesh is the 1-wide data mesh")
     return ap
 
 
@@ -194,7 +199,7 @@ def build_model(arch: str, args, device):
     process rebuilds them from (serving/transport.py)."""
     return realize_model_spec(build_model_spec(
         arch, smoke=args.smoke, quantize=args.quantize, seed=args.seed,
-        device=device))[:2]
+        model_parallel=args.model_parallel, device=device))[:2]
 
 
 def _roles_for(args):
@@ -208,7 +213,7 @@ def _spawn_fleet(args, ecfg, device) -> List[SubprocessTransport]:
     spec = build_model_spec(args.arch, smoke=args.smoke, quantize=args.quantize,
                             seed=args.seed,
                             draft_arch=args.draft_config if args.speculative else None,
-                            device=device)
+                            model_parallel=args.model_parallel, device=device)
     fleet = []
     try:
         for _ in range(args.hosts):
@@ -296,7 +301,7 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
     traffic, print the report, and return ``(requests, engine stats)``."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for name in ("requests", "prompt_len", "gen", "slots", "max_queue"):
+    for name in ("requests", "prompt_len", "gen", "slots", "max_queue", "model_parallel"):
         if getattr(args, name) < 1:
             ap.error(f"--{name.replace('_', '-')} must be >= 1")
     if (args.paged_native or args.paged_kernel) and args.cache_backend != "paged":
@@ -355,7 +360,13 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
                  "token-input dense/moe (contiguous or paged KV) and ssm/hybrid "
                  "(recurrent-state) archs; encdec/vlm serving is a ROADMAP item")
     device = resolve_device(args.device)
+    with shd.use_mesh(make_smoke_mesh(args.model_parallel, device)):
+        return _run(args, device)
 
+
+def _run(args, device) -> Tuple[List[Request], Dict]:
+    """``run``'s model, engine (or fleet) and traffic, under the mesh of
+    ``--model-parallel`` (one card: the 1-wide data mesh)."""
     cfg, params = build_model(args.arch, args, device)
     if args.quantize == "serve":
         print(f"[serve] Tensorizer W8A8: {count_qtensors(params)} weight "

@@ -28,8 +28,9 @@ checkpoint of step s is written after step s's update, with the data
 iterator at s + 1, and the loop resumes at s); ``--grad-accum`` takes one
 optimizer step per microbatch; ``--quantize`` only sets the config field
 (the init never quantizes, so training runs on float weights);
-``--model-parallel`` changes nothing on one card, as the reference's smoke
-mesh falls back to the data axis on one device. The embeds families
+``--model-parallel`` builds the run's mesh (``launch/mesh.py``), which on
+one card is the 1-wide data mesh, as the reference's smoke mesh falls back
+to the data axis on one device: it changes no number. The embeds families
 (qwen2-vl-2b, seamless-m4t-medium) are refused: the dataset yields tokens
 only, and the reference fails on them too.
 """
@@ -48,6 +49,8 @@ from repro_torch.checkpoint import AsyncCheckpointer, latest_step, load_checkpoi
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data import make_dataset
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models import init_model
 from repro_torch.models import steps as ST
 from repro_torch.optim import adamw_init
@@ -79,7 +82,8 @@ def _args(argv):
                     help="simulate a crash at this step (fault-tolerance drill)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the model axis of a pod mesh; one card has none")
+                    help="the model axis of the run's mesh; one card has none, so "
+                         "the mesh is the 1-wide data mesh")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -102,7 +106,12 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
               f"from the reference's); train it through "
               f"models.steps.make_train_step", file=sys.stderr, flush=True)
         return 2
+    with shd.use_mesh(make_smoke_mesh(args.model_parallel, device)):
+        return _train(args, cfg, device, on_step)
 
+
+def _train(args, cfg, device, on_step: Optional[Callable]) -> int:
+    """``main``'s loop under the mesh of ``--model-parallel``."""
     params = init_params(cfg, device)
     opt_state = adamw_init(params)
     ds = make_dataset(cfg, args.seq, args.batch)

@@ -25,6 +25,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.paged_attention import paged_decode_attention as _paged_kernel
 from repro_torch.models import layers as L
 
@@ -44,6 +45,53 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, d: int, device=None) -> Dic
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
     return p
+
+
+def attn_specs(cfg: ArchConfig) -> Dict:
+    """Partition specs of :func:`init_attn`'s leaves. The flat projection
+    columns (H * hd) divide the model axis even where the head count does
+    not, so weights always shard; only the activation layout
+    (:func:`_heads_spec`) is gated."""
+    m = "model"
+    p = {"wq": (None, m), "wk": (None, m), "wv": (None, m), "wo": (m, None)}
+    if cfg.qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    return p
+
+
+def _divisible_model(n: int) -> bool:
+    try:
+        return n % shd.model_parallel_size() == 0
+    except RuntimeError:
+        return True
+
+
+def _heads_spec(cfg: ArchConfig, n_heads: Optional[int] = None) -> Tuple:
+    """Head-axis sharding of q/k/v (B, S, heads, hd), only where the head
+    count divides the model axis (qwen3's 40, qwen2-vl's 12 and xlstm's 4
+    heads replicate on the pod meshes)."""
+    n = cfg.n_heads if n_heads is None else n_heads
+    m = "model" if (cfg.shard_heads and _divisible_model(n)) else None
+    return shd.batch_spec(None, m, None)
+
+
+def cache_spec(cfg: ArchConfig, seq_shard: bool) -> Tuple:
+    """Cache rows (B, S, KV, hd): batch over the data axes, the sequence
+    over data instead where the batch cannot cover it (SP, long contexts),
+    KV heads over model where they divide it."""
+    names = ()
+    try:
+        names = shd.axis_names()
+    except RuntimeError:
+        pass
+    model = ("model" if ("model" in names and cfg.shard_heads
+                         and _divisible_model(cfg.n_kv)) else None)
+    if seq_shard:
+        return (None, "data", model, None)
+    b = shd.batch_axes()
+    lead = b if len(b) > 1 else (b[0] if b else None)
+    return (lead, None, model, None)
 
 
 def _rotate(t: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,

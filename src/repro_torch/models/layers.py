@@ -132,6 +132,13 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d: int, f: int, device=None)
             for n in names}
 
 
+def mlp_specs(cfg: ArchConfig) -> Dict:
+    """Partition specs of :func:`init_mlp`'s leaves."""
+    if cfg.act == "swiglu":
+        return {"wi": (None, "model"), "wg": (None, "model"), "wo": ("model", None)}
+    return {"wi": (None, "model"), "wo": ("model", None)}
+
+
 def apply_mlp(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """SwiGLU: ``silu(x @ wi) * (x @ wg)`` then ``@ wo`` (``wi`` is the
     projection under silu and ``wg`` the multiplier, as in the JAX

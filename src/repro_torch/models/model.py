@@ -257,6 +257,62 @@ def _copy_layer(stacked, layer, i: int) -> None:
         stacked[i].copy_(layer)
 
 
+# ---------------------------------------------------------------------------
+# partition specs (the dry run's per-device accounting, models/steps.py)
+# ---------------------------------------------------------------------------
+
+def _norm_specs(cfg: ArchConfig) -> Dict:
+    p = {"scale": (None,)}
+    if cfg.norm == "layernorm":
+        p["bias"] = (None,)
+    return p
+
+
+def _prepend(spec_tree, axis_entry=None):
+    """Every spec of a tree with a leading (stacked-layer) axis added."""
+    if isinstance(spec_tree, dict):
+        return {k: _prepend(v, axis_entry) for k, v in spec_tree.items()}
+    return (axis_entry,) + tuple(spec_tree)
+
+
+def param_specs(cfg: ArchConfig) -> Dict:
+    """The partition spec of every leaf of :func:`init_model`'s tree (a
+    tuple per leaf, the reference's ``param_specs``)."""
+    specs: Dict[str, Any] = {"embed": ("model", None), "final_ln": _norm_specs(cfg)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "model")
+    if cfg.family in DENSE_FAMILIES:
+        layer = {"ln1": _norm_specs(cfg), "attn": A.attn_specs(cfg), "ln2": _norm_specs(cfg)}
+        if cfg.family == "moe":
+            layer["moe"] = MOE.moe_specs(cfg)
+        else:
+            layer["mlp"] = L.mlp_specs(cfg)
+        specs["layers"] = _prepend(layer)
+    elif cfg.family == "encdec":
+        enc = {"ln1": _norm_specs(cfg), "attn": A.attn_specs(cfg),
+               "ln2": _norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+        dec = {"ln1": _norm_specs(cfg), "self_attn": A.attn_specs(cfg),
+               "ln_x": _norm_specs(cfg), "cross_attn": A.attn_specs(cfg),
+               "ln2": _norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+        specs["encoder"] = _prepend(enc)
+        specs["decoder"] = _prepend(dec)
+        specs["enc_final_ln"] = _norm_specs(cfg)
+    elif cfg.family == "hybrid":
+        mamba = {"ln": _norm_specs(cfg), "mamba": SSM.mamba2_specs(cfg)}
+        specs["hybrid"] = {
+            "groups": _prepend(_prepend(mamba)),        # (G, attn_every, ...)
+            "shared": {"ln1": _norm_specs(cfg), "attn": A.attn_specs(cfg),
+                       "ln2": _norm_specs(cfg), "mlp": L.mlp_specs(cfg)},
+            "lora": _prepend({"qA": (None, None), "qB": (None, "model")}),
+            "tail": _prepend(mamba) if cfg.n_layers % cfg.attn_every else None,
+        }
+    elif cfg.family == "ssm":
+        pair = {"ln_m": _norm_specs(cfg), "mlstm": XL.mlstm_specs(cfg),
+                "ln_s": _norm_specs(cfg), "slstm": XL.slstm_specs(cfg)}
+        specs["xlstm"] = {"pairs": _prepend(pair)}
+    return specs
+
+
 def layer_params(layers: Dict, i) -> Dict:
     """Layer ``i``'s slice of the stacked layer params (QTensors included);
     ``i`` an int, or a tuple indexing several leading axes (the hybrid's
@@ -499,6 +555,9 @@ def _unstack(tree, n: int) -> List:
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tz.QTensor):
+        return [tz.QTensor(q, s, tuple(q.shape))
+                for q, s in zip(_unstack(tree.q, n), _unstack(tree.scale, n))]
     layers = torch.unbind(tree, 0)
     if len(layers) != n:
         raise ValueError(f"stacked leaf has {len(layers)} layers, expected {n}")

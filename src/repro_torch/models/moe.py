@@ -72,6 +72,15 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, d: int, device=None) -> Dict
     return p
 
 
+def moe_specs(cfg: ArchConfig) -> Dict:
+    """Partition specs of :func:`init_moe`'s leaves: experts over model (EP)."""
+    p = {"router": (None, None), "wi": ("model", None, None),
+         "wg": ("model", None, None), "wo": ("model", None, None)}
+    if cfg.n_shared_experts:
+        p["shared"] = L.mlp_specs(cfg)
+    return p
+
+
 def router_scores(router, x: torch.Tensor) -> torch.Tensor:
     """f32 scores (T, E) of tokens x (T, D): ``x.f32 @ router`` in calls of
     exactly ROUTER_ROWS rows, the last zero-padded (module doc)."""
@@ -132,15 +141,24 @@ def expert_outputs(p: Dict, x: torch.Tensor, experts: torch.Tensor, n_tokens: in
     carries rows i * EXPERT_ROWS onward of each expert's queue, zero rows
     elsewhere. ``n_tokens`` bounds any expert's queue (a token picks an
     expert at most once), so the passes need no host read at or below
-    EXPERT_ROWS tokens. Returns (P, D)."""
+    EXPERT_ROWS tokens. On meta tensors (the dry run) the queues are a
+    balanced router's, ``ceil(P / E)`` each. Returns (P, D)."""
     E, R = cfg.n_experts, EXPERT_ROWS
     P, D = x.shape
-    counts = torch.bincount(experts, minlength=E)
+    if x.is_meta:
+        # the dry run has no routing to read: a balanced router's queues
+        counts = experts.new_zeros((E,))
+        longest = -(-P // E)
+    else:
+        counts = torch.bincount(experts, minlength=E)
     order = torch.argsort(experts, stable=True)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(P, device=x.device) - (torch.cumsum(counts, 0) - counts)[
         experts[order]]
-    n_pass = 1 if n_tokens <= R else -(-int(counts.max()) // R)
+    if n_tokens <= R:
+        n_pass = 1
+    else:
+        n_pass = -(-(longest if x.is_meta else int(counts.max())) // R)
     step, slot = rank // R, rank % R
     xb = x.new_zeros((n_pass, E, R, D))
     xb[step, experts, slot] = x

@@ -138,6 +138,16 @@ def init_mamba2(gen: torch.Generator, cfg: ArchConfig, device=None) -> Dict:
     return p
 
 
+def mamba2_specs(cfg: ArchConfig) -> Dict:
+    """Partition specs of :func:`init_mamba2`'s leaves."""
+    return {
+        "wz": (None, "model"), "wxbc": (None, None), "wdt": (None, "model"),
+        "dt_bias": ("model",), "conv_w": (None, None), "conv_b": (None,),
+        "A_log": ("model",), "Dskip": ("model",), "norm": ("model",),
+        "wo": ("model", None),
+    }
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

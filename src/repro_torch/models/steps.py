@@ -17,16 +17,20 @@ a step has no effect."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as T
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCfg
+from repro_torch.core import tensorizer as tz
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
-from repro_torch.models.attention import DecodeRows
+from repro_torch.models.attention import DecodeRows, cache_spec
 from repro_torch.models import serve as SV
-from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_schedule
+from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, cosine_schedule
 from repro_torch.serving import sampling as SMP
 
 AUX_WEIGHT = 0.01
@@ -43,14 +47,19 @@ def _emit(cfg: ArchConfig, row: torch.Tensor, payload, sampling: Optional[Dict],
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """The next-token distribution of a full-sequence forward, every
-    family: ``prefill_step(params, tokens, embeds=None, positions3=None)``
-    -> the last position's logits (B, V_pad) (``model.forward``'s inputs:
-    the vlm's embeds and M-RoPE positions, the encdec's decoder tokens and
-    frame embeddings)."""
+    family, the reference's ``make_prefill_step``: its ``forward`` without
+    K/V (``model.train_forward`` without autograd: plain attention, or the
+    online softmax above ``attn_chunk``; MoE's shared, dropping capacity).
+    ``prefill_step(params, tokens, embeds=None, positions3=None)`` -> the
+    last position's logits (B, V_pad) (the vlm's embeds and M-RoPE
+    positions, the encdec's decoder tokens and frame embeddings)."""
     def prefill_step(params: Dict, tokens: Optional[torch.Tensor],
                      embeds: Optional[torch.Tensor] = None,
                      positions3: Optional[torch.Tensor] = None):
-        logits = M.forward(params, cfg, tokens, embeds=embeds, positions3=positions3)[0]
+        batch = {k: v for k, v in (("tokens", tokens), ("embeds", embeds),
+                                   ("positions3", positions3)) if v is not None}
+        with torch.no_grad():
+            logits = M.train_forward(params, cfg, batch)[0]
         return logits[:, -1, :]
     return prefill_step
 
@@ -115,11 +124,14 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
     bridge both run it. The rows are written in place where the JAX engine
     donates the cache; the index comes back as a new tensor. ``active``
     (B,) bool, the engine's busy slots, masks idle slots out of the MoE
-    capacity cumsum (models/moe.py)."""
+    capacity cumsum (models/moe.py); ``positions3`` (3, B, 1) the M-RoPE
+    positions (by default the index on all three sections)."""
     def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                     sampling: Optional[Dict] = None,
-                    active: Optional[torch.Tensor] = None):
-        logits, cache = SV.decode(params, cfg, cache, tokens, active=active)
+                    active: Optional[torch.Tensor] = None,
+                    positions3: Optional[torch.Tensor] = None):
+        logits, cache = SV.decode(params, cfg, cache, tokens, active=active,
+                                  positions3=positions3)
         return _emit(cfg, logits[:, -1], cache, sampling, cache["index"])
     return decode_step
 
@@ -255,3 +267,162 @@ def make_train_step(cfg: ArchConfig) -> Callable:
         params, opt_state, upd = apply_update(params, grads, opt_state, step, cfg)
         return params, opt_state, {"loss": loss.detach(), **metrics, **upd}
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs: meta tensors (never allocated) and their partition
+# specs, the reference's ShapeDtypeStructs with shardings
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _fit(shape, spec: Tuple) -> Tuple:
+    """Drop sharding on dims the axis sizes don't divide (e.g. batch=1
+    cells); one entry per dim."""
+    mesh = shd.current_mesh()
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, e in zip(shape, entries):
+        axes = e if isinstance(e, (tuple, list)) else (e,) if e else ()
+        size = math.prod(mesh.shape[a] for a in axes)
+        out.append(e if (size and dim % size == 0) else None)
+    return tuple(out)
+
+
+def shard_shape(shape, spec: Tuple) -> Tuple[int, ...]:
+    """The per-device shape of a leaf of ``shape`` under a fitted ``spec``
+    on the current mesh."""
+    mesh = shd.current_mesh()
+    out = []
+    for i, dim in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        axes = e if isinstance(e, (tuple, list)) else (e,) if e else ()
+        out.append(dim // math.prod(mesh.shape[a] for a in axes))
+    return tuple(out)
+
+
+def _lead() -> Any:
+    b = shd.batch_axes()
+    return b if len(b) > 1 else (b[0] if b else None)
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeCfg) -> Tuple[Dict, Dict]:
+    """A cell's model inputs on meta and their specs (batch over the data
+    axes): decode ``tokens`` (B, 1) (+ ``positions3`` (3, B, 1) for
+    M-RoPE); train and prefill ``tokens`` (B, S), or the frontend stubs'
+    ``embeds`` (the encdec's frames (B, S / enc_len_ratio, D) beside its
+    decoder tokens), M-RoPE ``positions3``; train adds ``labels``."""
+    B, S = shape.global_batch, shape.seq_len
+    lead = _lead()
+    out: Dict[str, torch.Tensor] = {}
+    specs: Dict[str, Tuple] = {}
+
+    def put(name, shp, dtype, spec):
+        out[name] = torch.empty(shp, dtype=dtype, device=META)
+        specs[name] = _fit(shp, shd.scrub(spec))
+
+    def tok(name, shp):
+        put(name, shp, torch.int32, (lead,) + (None,) * (len(shp) - 1))
+    if shape.kind == "decode":
+        tok("tokens", (B, 1))
+        if cfg.rope_kind == "mrope":
+            put("positions3", (3, B, 1), torch.int32, (None, lead, None))
+        return out, specs
+    if cfg.input_mode == "embeds":
+        dt = L.cdtype(cfg)
+        if cfg.is_encdec:
+            put("embeds", (B, max(1, S // cfg.enc_len_ratio), cfg.d_model), dt,
+                (lead, None, None))
+            tok("tokens", (B, S))
+        else:
+            put("embeds", (B, S, cfg.d_model), dt, (lead, None, None))
+        if cfg.rope_kind == "mrope":
+            put("positions3", (3, B, S), torch.int32, (None, lead, None))
+    else:
+        tok("tokens", (B, S))
+    if shape.kind == "train":
+        tok("labels", (B, S))
+    return out, specs
+
+
+def _walk_specs(tree, spec_of, path=()):
+    """The parallel tree of ``spec_of(path, leaf)`` over a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _walk_specs(v, spec_of, path + (k,)) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return spec_of(path, tree)
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeCfg) -> Tuple[Dict, Dict]:
+    """``serve.init_cache``'s cache for the cell on meta and its specs: K/V
+    rows by ``attention.cache_spec`` (the sequence over data where the
+    batch cannot cover the data axes), every other leaf of two or more dims
+    batch over the data axes at dim 1."""
+    cache = SV.init_cache(cfg, shape.global_batch, shape.seq_len, device=META)
+    seq_shard = shape.global_batch < shd.data_parallel_size()
+    kv_spec = (None,) + cache_spec(cfg, seq_shard)
+
+    def spec_of(path, leaf):
+        if path[-1] in ("k", "v", "cross_k", "cross_v"):
+            return _fit(leaf.shape, shd.scrub(kv_spec))
+        if leaf.ndim >= 2:
+            return _fit(leaf.shape, shd.scrub((None, _lead()) + (None,) * (leaf.ndim - 2)))
+        return ()
+    return cache, _walk_specs(cache, spec_of)
+
+
+def param_sds(cfg: ArchConfig) -> Tuple[Dict, Dict]:
+    """``init_model``'s tree on meta (nothing drawn: the generator is None
+    there) and its fitted ``param_specs``. With ``cfg.quantize == "serve"``
+    the tree mirrors the serving build, ``tensorizer.quantize_params``
+    under the serve CLI's predicate: projection weights become QTensors of
+    int8 ``q`` and f32 per-channel ``scale``, whose spec is a QTensor of
+    the two specs (the scale's size-1 dims unsharded)."""
+    params = M.init_model(cfg, None, device=META)
+    specs = M.param_specs(cfg)
+    if cfg.quantize == "serve":
+        from repro_torch.launch.serve import quant_predicate
+        params = tz.quantize_params(params, quant_predicate)
+
+    def attach(leaf, spec):
+        if isinstance(leaf, dict):
+            return {k: attach(leaf[k], spec[k]) for k in leaf}
+        if leaf is None:
+            return None
+        if isinstance(leaf, tz.QTensor):
+            full = list(spec) + [None] * (leaf.scale.ndim - len(spec))
+            sspec = tuple(e if d > 1 else None for d, e in zip(leaf.scale.shape, full))
+            return tz.QTensor(_fit(leaf.q.shape, shd.scrub(spec)),
+                              _fit(leaf.scale.shape, shd.scrub(sspec)), leaf.meta_shape)
+        return _fit(leaf.shape, shd.scrub(spec))
+    return params, attach(params, specs)
+
+
+def opt_sds(cfg: ArchConfig, params: Dict, param_specs: Dict) -> Tuple[Any, Any]:
+    """AdamW's state for ``params`` on meta and its specs: each moment as
+    its parameter; with ``cfg.zero1`` its first unsharded dim that the data
+    axis divides goes over data (ZeRO-1)."""
+    mesh = shd.current_mesh()
+    state = adamw_init(params)
+
+    def spec_of(leaf, spec):
+        if leaf.ndim == 0:
+            return ()
+        if cfg.zero1:
+            entries = list(spec) + [None] * (leaf.ndim - len(spec))
+            flat = [a for e in entries for a in (e if isinstance(e, tuple) else (e,))]
+            if "data" not in flat:
+                for i, e in enumerate(entries):
+                    if e is None and leaf.shape[i] % mesh.shape["data"] == 0 and leaf.shape[i] > 1:
+                        entries[i] = "data"
+                        break
+            spec = tuple(entries)
+        return spec
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k]) for k in t}
+        return None if t is None else spec_of(t, spec)
+    return state, type(state)(step=(), mu=walk(state.mu, param_specs),
+                              nu=walk(state.nu, param_specs))

@@ -97,6 +97,16 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig, device=None) -> Dict:
     return p
 
 
+def mlstm_specs(cfg: ArchConfig) -> Dict:
+    """Partition specs of :func:`init_mlstm`'s leaves."""
+    m = "model" if cfg.shard_heads else None
+    return {
+        "wq": (None, m), "wk": (None, m), "wv": (None, m),
+        "wi": (None, m), "wf": (None, m), "b_i": (m,), "b_f": (m,),
+        "wo_gate": (None, m), "wo": (m, None),
+    }
+
+
 def _stabilizer(log_f: torch.Tensor, log_i: torch.Tensor) -> torch.Tensor:
     """m_t = max(log f_t + m_{t-1}, log i_t) with m_{-1} = M_INIT, in its
     max-plus closed form over (B, T, H): F + max(cummax(log_i - F), init),
@@ -199,6 +209,18 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig, device=None) -> Dict:
                                 device=device)
     p["wup"] = L.dense_init(gen, (D, 2 * D), device=device)
     p["wdown"] = L.dense_init(gen, (D, D), device=device)
+    return p
+
+
+def slstm_specs(cfg: ArchConfig) -> Dict:
+    """Partition specs of :func:`init_slstm`'s leaves."""
+    p = {}
+    for g in ("z", "i", "f", "o"):
+        p[f"w{g}"] = (None, None)
+        p[f"r{g}"] = (None, None, None)
+        p[f"b{g}"] = (None,)
+    p["wup"] = (None, "model")
+    p["wdown"] = (None, None)
     return p
 
 

@@ -3,8 +3,8 @@
 ``python -m repro_torch.serving.host_main --socket PATH`` connects back to
 the parent's AF_UNIX listener, receives an init frame ({model_spec,
 engine_cfg}), rebuilds the weights from the spec (bitwise the parent's on
-the same device type, see transport.realize_model_spec) and enters the
-serve loop.
+the same device type, see transport.realize_model_spec) under the mesh of
+its ``model_parallel`` (launch/mesh.py) and enters the serve loop.
 
 The loop free-runs the engine: between frames it calls ``pump()`` (one
 engine step when there is work), polling the socket with a zero timeout
@@ -43,20 +43,24 @@ def serve(sock_path: str) -> int:
     spec = init["args"]["model_spec"]
 
     # heavy imports after the handshake, so a connect failure is fast
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.transport import (
         EngineHost, engine_cfg_from_wire, realize_model_spec,
     )
 
-    cfg, params, draft_cfg, draft_params = realize_model_spec(spec)
-    ecfg = engine_cfg_from_wire(init["args"]["engine_cfg"], draft_cfg=draft_cfg)
-    host = EngineHost(Engine(cfg, params, ecfg, device=spec.get("device", "cuda"),
-                             draft_params=draft_params))
-    chan.send({"seq": init.get("seq"), "ok": True, "val": {"pid": os.getpid()}})
-    try:
-        _loop(chan, host)
-    finally:
-        host.close()
+    device = spec.get("device", "cuda")
+    with shd.use_mesh(make_smoke_mesh(int(spec.get("model_parallel", 1)), device)):
+        cfg, params, draft_cfg, draft_params = realize_model_spec(spec)
+        ecfg = engine_cfg_from_wire(init["args"]["engine_cfg"], draft_cfg=draft_cfg)
+        host = EngineHost(Engine(cfg, params, ecfg, device=device,
+                                 draft_params=draft_params))
+        chan.send({"seq": init.get("seq"), "ok": True, "val": {"pid": os.getpid()}})
+        try:
+            _loop(chan, host)
+        finally:
+            host.close()
     return 0
 
 

@@ -193,16 +193,17 @@ def engine_cfg_from_wire(d: Dict, draft_cfg=None) -> EngineConfig:
 
 def build_model_spec(arch: str, *, smoke: bool = True, quantize: str = "off",
                      overrides: Optional[Dict] = None, seed: int = 0,
-                     draft_arch: Optional[str] = None, device=None) -> Dict:
+                     draft_arch: Optional[str] = None, model_parallel: int = 1,
+                     device=None) -> Dict:
     """The recipe a worker rebuilds its weights from: registry arch name,
     smoke scaling, ArchConfig field overrides, the quantize mode, the
-    generator seed and the device (``cuda`` unless the caller names
-    another). Same spec and device type => bitwise the same weights. The
-    draft (speculative decode) is built from the same seed and quantize
-    mode, as the CLI builds it."""
+    generator seed, the model axis of the worker's mesh and the device
+    (``cuda`` unless the caller names another). Same spec and device type
+    => bitwise the same weights. The draft (speculative decode) is built
+    from the same seed and quantize mode, as the CLI builds it."""
     spec = {"arch": arch, "smoke": bool(smoke), "quantize": quantize,
             "overrides": dict(overrides or {}), "seed": int(seed),
-            "device": str(device or "cuda")}
+            "model_parallel": int(model_parallel), "device": str(device or "cuda")}
     if draft_arch:
         spec["draft"] = {"arch": draft_arch, "smoke": bool(smoke), "quantize": quantize,
                          "seed": int(seed)}

@@ -19,40 +19,45 @@ def _is_namedtuple(t) -> bool:
     return isinstance(t, tuple) and hasattr(t, "_fields")
 
 
+def _flatten_into(t, leaves: List[Any]):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    if _is_namedtuple(t):
+        return type(t)(*(_flatten_into(v, leaves) for v in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_flatten_into(v, leaves) for v in t)
+    leaves.append(t)
+    return _LEAF
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
     """``(leaves, spec)``: the leaves in JAX's order and the structure with
-    every leaf replaced by a marker (for :func:`unflatten`)."""
+    every leaf replaced by a marker (for :func:`unflatten`). The walks are
+    module-level functions: a nested recursive function is a reference
+    cycle, which would keep the leaves it reached (a step's gradients)
+    alive until the garbage collector runs."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if _is_namedtuple(t):
-            return type(t)(*(walk(v) for v in t))
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(v) for v in t)
-        leaves.append(t)
-        return _LEAF
-    return leaves, walk(tree)
+
+def _build(s, it):
+    if s is _LEAF:
+        return next(it)
+    if s is None:
+        return None
+    if isinstance(s, dict):
+        return {k: _build(v, it) for k, v in s.items()}
+    if _is_namedtuple(s):
+        return type(s)(*(_build(v, it) for v in s))
+    return type(s)(_build(v, it) for v in s)
 
 
 def unflatten(spec, leaves) -> Any:
     """The tree of ``spec`` (from :func:`flatten`) over ``leaves``."""
     it = iter(leaves)
-
-    def build(s):
-        if s is _LEAF:
-            return next(it)
-        if s is None:
-            return None
-        if isinstance(s, dict):
-            return {k: build(v) for k, v in s.items()}
-        if _is_namedtuple(s):
-            return type(s)(*(build(v) for v in s))
-        return type(s)(build(v) for v in s)
-    out = build(spec)
+    out = _build(spec, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the structure holds")
     return out
