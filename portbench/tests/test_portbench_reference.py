@@ -1,0 +1,111 @@
+"""The comparison that decides ``correct``, on the CPU at the port's
+reduced sizes: the engine's served tokens pass against the plain
+reference, the control (the int4 reference in the program's place) fails
+the limits, and a run with the timed path broken underneath comes out not
+correct, for each fault a serving cell can have on one chip:
+
+* a decode step that returns its state unchanged (its K/V writes undone);
+* half of the batch left out (the second half of the rows given the first
+  half's tokens);
+* a token altered where it is produced (every third decode step).
+
+The exchange between chips has no counterpart on one chip.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pbtest
+
+from portbench import check
+from portbench.model import Model
+from portbench.run import execute
+
+SEED = 2_147_483_659
+CELLS = ("qwen3-14b.chat",)
+CPU = torch.device("cpu")
+
+
+def _run(name, plant=None, seconds=2.0):
+    cell = pbtest.smoke_cell(name)
+    rec, _, checks = execute(cell, SEED, seconds, False, CPU, plant=plant)
+    return cell, rec, checks
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_served_tokens_pass_and_the_control_fails(name):
+    cell, rec, checks = _run(name)
+    assert checks["served_tokens"]["value"] >= checks["served_tokens"]["min"] > 0
+    assert check.passed(checks), checks
+    samples = check.sample(rec, SEED)
+    m = Model.from_config(cell.config)
+    ref = check.reference_logits(m, SEED, samples, CPU, bits=8)
+    low = check.reference_logits(m, SEED, samples, CPU, bits=4)
+    read = {"logit_gap": np.max, "mean_gap": np.mean}
+    ctl = check.control_gaps(ref, low)
+    assert any(read[k](ctl) > v for k, v in cell.limits.items())
+    # the program's own gaps sit well under the limits
+    gaps = check.served_gaps(ref, samples)
+    assert all(read[k](gaps) < v / 2 for k, v in cell.limits.items())
+
+
+def _wrap_decode(eng, after):
+    fn = eng._decode
+    calls = [0]
+
+    def broken(params, cache, tokens, *rest):
+        out = after(fn, calls[0], params, cache, tokens, *rest)
+        calls[0] += 1
+        return out
+    eng._decode = broken
+
+
+def state_unchanged(eng):
+    def after(fn, i, params, cache, tokens, *rest):
+        saved = {k: cache[k].clone() for k in ("k", "v")}
+        out = fn(params, cache, tokens, *rest)
+        for k, v in saved.items():
+            cache[k].copy_(v)
+        return out
+    _wrap_decode(eng, after)
+
+
+def half_batch(eng):
+    def after(fn, i, params, cache, tokens, *rest):
+        tok, *more = fn(params, cache, tokens, *rest)
+        tok = tok.clone()
+        half = tok.shape[0] // 2
+        tok[half:2 * half] = tok[:half]
+        return (tok, *more)
+    _wrap_decode(eng, after)
+
+
+def altered_token(eng):
+    vocab = eng.cfg.vocab
+
+    def after(fn, i, params, cache, tokens, *rest):
+        tok, *more = fn(params, cache, tokens, *rest)
+        if i % 3 == 2:
+            tok = (tok + 1) % vocab
+        return (tok, *more)
+    _wrap_decode(eng, after)
+
+
+@pytest.mark.parametrize("fault", [state_unchanged, half_batch, altered_token],
+                         ids=lambda f: f.__name__)
+@pytest.mark.parametrize("name", CELLS)
+def test_a_broken_timed_path_is_not_correct(name, fault):
+    _, _, checks = _run(name, plant=fault)
+    assert not check.passed(checks), checks
+
+
+def test_the_sample_holds_the_longest_request_and_repeats():
+    _, rec, _ = _run("qwen3-14b.chat")
+    a, b = check.sample(rec, SEED), check.sample(rec, SEED)
+    assert [len(t) for _, t in a] == [len(t) for _, t in b]
+    longest = max(len(s.req.tokens) for s in rec.served if s.finished is not None)
+    assert len(a[0][1]) == longest
+    assert sum(len(t) for _, t in a) >= min(check.SAMPLE_TOKENS, sum(
+        len(s.req.tokens) for s in rec.served if s.finished is not None))
+    assert all(np.array_equal(p1, p2) for (p1, _), (p2, _) in zip(a, b))
