@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
+
 
 def device_key(device: torch.device) -> str:
     device = torch.device(device)
@@ -77,6 +79,7 @@ class Instruction:
     fn: Callable
     buffers: Tuple[Buffer, ...]
     flags: str = ""
+    span_parent: Optional[int] = None      # the span that issued it (tracing)
 
 
 @dataclasses.dataclass
@@ -116,7 +119,7 @@ class OPQ:
                         flags: str = "") -> Future:
         """Issue one instruction (``openctpu_invoke_operator``) and return
         its future; the caller owns the result."""
-        return self._schedule(Instruction(fn, tuple(buffers), flags))
+        return self._schedule(Instruction(fn, tuple(buffers), flags, tracing.current()))
 
     # ------------------------------------------------------------ scheduling
 
@@ -139,35 +142,38 @@ class OPQ:
         return self._pool.submit(self._run_with_backup, ins, lane)
 
     def _run_with_backup(self, ins: Instruction, lane: _Lane):
-        t0 = time.perf_counter()
-        deadline = lane.ema_service_s * self.straggler_factor
-        try:
-            result = self._executor(ins, lane.device)
-        except _StragglerTimeout:
-            with self._lock:
-                self.stats["backups_issued"] += 1
-            backup = min(self.lanes, key=lambda l: l.ema_service_s)
-            result = self._executor(ins, backup.device)
-        finally:
-            with self._lock:
-                lane.pending -= 1
-        dt = time.perf_counter() - t0
-        lane.observe(dt)
-        if self.enable_backup_tasks and dt > deadline and len(self.lanes) > 1:
-            with self._lock:
-                self.stats["stragglers_detected"] = (
-                    self.stats.get("stragglers_detected", 0) + 1)
-        return result
+        with tracing.span("opq.run", parent=ins.span_parent, flags=ins.flags):
+            t0 = time.perf_counter()
+            deadline = lane.ema_service_s * self.straggler_factor
+            try:
+                result = self._executor(ins, lane.device)
+            except _StragglerTimeout:
+                with self._lock:
+                    self.stats["backups_issued"] += 1
+                backup = min(self.lanes, key=lambda l: l.ema_service_s)
+                result = self._executor(ins, backup.device)
+            finally:
+                with self._lock:
+                    lane.pending -= 1
+            dt = time.perf_counter() - t0
+            lane.observe(dt)
+            if self.enable_backup_tasks and dt > deadline and len(self.lanes) > 1:
+                with self._lock:
+                    self.stats["stragglers_detected"] = (
+                        self.stats.get("stragglers_detected", 0) + 1)
+            return result
 
     # ------------------------------------------------------------- executors
 
     @staticmethod
     def _default_executor(ins: Instruction, device: torch.device):
         args = [b.to_device(device) for b in ins.buffers]
-        out = ins.fn(*args)
+        with tracing.span("opq.issue"):
+            out = ins.fn(*args)
         if device.type == "cuda":
             # the lane's completion point (block_until_ready in the JAX runtime)
-            torch.cuda.synchronize(device)
+            with tracing.span("opq.sync"):
+                torch.cuda.synchronize(device)
         return out
 
     def shutdown(self):

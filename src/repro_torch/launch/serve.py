@@ -43,6 +43,10 @@ decode hosts adopting shipped KV blocks. ``--api-port P`` serves the engine
 (or the fleet) over HTTP on port P instead of the synthetic traffic (0: a
 port the OS picks) until SIGINT or SIGTERM.
 
+``--trace PATH`` records the port's spans (``repro_torch/tracing.py``) over
+the run, in this process (worker processes record none), and writes them
+to PATH as Chrome trace events, which Perfetto opens.
+
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions (use ``--smoke`` there: full width is 1.1B parameters and more).
 With ``--quantize serve`` the weights are built layer by layer, each layer
@@ -63,7 +67,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import make_smoke_mesh
@@ -173,6 +177,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "synthetic traffic (0 = a port the OS picks, -1 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for tests)")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="record the port's spans (repro_torch/tracing.py) for the run "
+                         "and write them to PATH as Chrome trace events (Perfetto)")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="the model axis of the smoke mesh (launch/mesh.py): one card "
                          "has none, so the mesh is the 1-wide data mesh")
@@ -360,8 +367,17 @@ def run(argv=None) -> Tuple[List[Request], Dict]:
                  "token-input dense/moe (contiguous or paged KV) and ssm/hybrid "
                  "(recurrent-state) archs; encdec/vlm serving is a ROADMAP item")
     device = resolve_device(args.device)
-    with shd.use_mesh(make_smoke_mesh(args.model_parallel, device)):
-        return _run(args, device)
+    if args.trace:
+        tracing.enable()
+    try:
+        with shd.use_mesh(make_smoke_mesh(args.model_parallel, device)):
+            return _run(args, device)
+    finally:
+        if args.trace:
+            tracing.disable()
+            spans = tracing.take()
+            tracing.write_chrome_trace(args.trace, spans)
+            print(f"[serve] trace: {len(spans)} spans -> {args.trace}", flush=True)
 
 
 def _run(args, device) -> Tuple[List[Request], Dict]:

@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tensorizer as tz
 from repro_torch.models import attention as A
@@ -393,7 +394,8 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor], *,
         if return_hidden:
             raise ValueError("return_hidden is a decoder-only path, not encdec")
         return _encdec_forward(params, cfg, embeds, tokens), None
-    x = embed_tokens(params, cfg, tokens) if embeds is None else embeds.to(L.cdtype(cfg))
+    with tracing.span("fwd.embed"):
+        x = embed_tokens(params, cfg, tokens) if embeds is None else embeds.to(L.cdtype(cfg))
     if cfg.family in ("hybrid", "ssm"):
         body = _hybrid_forward if cfg.family == "hybrid" else _xlstm_forward
         hidden = L.apply_norm(params["final_ln"], body(params, cfg, x, positions,
@@ -403,21 +405,25 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor], *,
     names = kv_names(cfg)
     entries = []
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        h = L.apply_norm(lp["ln1"], x, cfg)
-        o, *kv = A.prefill_attention_with_kv(lp["attn"], h, cfg, positions=positions,
-                                             positions3=positions3, int8_kv=int8_kv,
-                                             decode_rows=decode_rows)
-        x = x + o
-        h = L.apply_norm(lp["ln2"], x, cfg)
-        x = x + ffn(lp, h, cfg, row_isolated=not return_hidden)
+        with tracing.span("fwd.layer", i=i):
+            lp = layer_params(params["layers"], i)
+            with tracing.span("fwd.attn"):
+                h = L.apply_norm(lp["ln1"], x, cfg)
+                o, *kv = A.prefill_attention_with_kv(lp["attn"], h, cfg, positions=positions,
+                                                     positions3=positions3, int8_kv=int8_kv,
+                                                     decode_rows=decode_rows)
+                x = x + o
+            with tracing.span("fwd.ffn"):
+                h = L.apply_norm(lp["ln2"], x, cfg)
+                x = x + ffn(lp, h, cfg, row_isolated=not return_hidden)
         if not return_hidden:
             entries.append(kv)
-    if return_hidden:
-        hidden = L.apply_norm(params["final_ln"], x, cfg)
-        return _head(params, cfg, hidden), hidden
-    return _logits(params, cfg, x), {n: torch.stack([e[j] for e in entries])
-                                     for j, n in enumerate(names)}
+    with tracing.span("fwd.head"):
+        if return_hidden:
+            hidden = L.apply_norm(params["final_ln"], x, cfg)
+            return _head(params, cfg, hidden), hidden
+        logits = _logits(params, cfg, x)
+    return logits, {n: torch.stack([e[j] for e in entries]) for j, n in enumerate(names)}
 
 
 def xlstm_pair(lp: Dict, x: torch.Tensor, cfg: ArchConfig, state=None,

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -221,23 +222,29 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     for lo in range(start, S, width):
         w = min(width, S - lo)
         positions = (lo + torch.arange(w, dtype=torch.int32, device=dev)).expand(B, w)
-        x = M.embed_tokens(params, cfg, tokens[:, lo:lo + w])
+        with tracing.span("fwd.embed"):
+            x = M.embed_tokens(params, cfg, tokens[:, lo:lo + w])
         for i in range(cfg.n_layers):
-            lp = M.layer_params(params["layers"], i)
-            h = L.apply_norm(lp["ln1"], x, cfg)
-            accs = {n: kv[n][i] for n in names}
-            x = x + A.chunked_prefill_attention_with_kv(
-                lp["attn"], h, cfg, positions=positions, chunk_start=lo,
-                k_acc=accs["k"], v_acc=accs["v"], k_sc_acc=accs.get("k_scale"),
-                v_sc_acc=accs.get("v_scale"), int8_kv=int8_kv, decode_rows=decode_rows)
-            h = L.apply_norm(lp["ln2"], x, cfg)
-            x = x + M.ffn(lp, h, cfg, row_isolated=True)
+            with tracing.span("fwd.layer", i=i):
+                lp = M.layer_params(params["layers"], i)
+                with tracing.span("fwd.attn"):
+                    h = L.apply_norm(lp["ln1"], x, cfg)
+                    accs = {n: kv[n][i] for n in names}
+                    x = x + A.chunked_prefill_attention_with_kv(
+                        lp["attn"], h, cfg, positions=positions, chunk_start=lo,
+                        k_acc=accs["k"], v_acc=accs["v"], k_sc_acc=accs.get("k_scale"),
+                        v_sc_acc=accs.get("v_scale"), int8_kv=int8_kv,
+                        decode_rows=decode_rows)
+                with tracing.span("fwd.ffn"):
+                    h = L.apply_norm(lp["ln2"], x, cfg)
+                    x = x + M.ffn(lp, h, cfg, row_isolated=True)
         # carry each row's last-prompt-position hidden state
         rel = last_index.long() - lo
         in_piece = (rel >= 0) & (rel < w)
         row = x[rows, torch.clamp(rel, 0, w - 1)]
         last_x = torch.where(in_piece[:, None], row, last_x)
-    logits = M._logits(params, cfg, last_x[:, None, :])
+    with tracing.span("fwd.head"):
+        logits = M._logits(params, cfg, last_x[:, None, :])
     return logits[:, 0, :].to(torch.float32), kv
 
 
@@ -255,15 +262,20 @@ def _decode_layers(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Ten
     norms' row sums do not depend on T: layers.apply_norm). MoE layers take
     ``active`` (decode) or ``row_isolated`` (verify)."""
     int8_kv = "k_scale" in cache
-    x = M.embed_tokens(params, cfg, tokens)
+    with tracing.span("fwd.embed"):
+        x = M.embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
-        lp = M.layer_params(params["layers"], i)
-        h = L.apply_norm(lp["ln1"], x, cfg)
-        scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8_kv else None
-        x = x + attend(lp["attn"], h, i, scales)
-        h = L.apply_norm(lp["ln2"], x, cfg)
-        x = x + M.ffn(lp, h, cfg, active=active, row_isolated=row_isolated)
-    return M._head(params, cfg, L.apply_norm(params["final_ln"], x, cfg))
+        with tracing.span("fwd.layer", i=i):
+            lp = M.layer_params(params["layers"], i)
+            with tracing.span("fwd.attn"):
+                h = L.apply_norm(lp["ln1"], x, cfg)
+                scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8_kv else None
+                x = x + attend(lp["attn"], h, i, scales)
+            with tracing.span("fwd.ffn"):
+                h = L.apply_norm(lp["ln2"], x, cfg)
+                x = x + M.ffn(lp, h, cfg, active=active, row_isolated=row_isolated)
+    with tracing.span("fwd.head"):
+        return M._head(params, cfg, L.apply_norm(params["final_ln"], x, cfg))
 
 
 def _hybrid_decode(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Tensor,

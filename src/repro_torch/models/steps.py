@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.core import tensorizer as tz
@@ -39,10 +40,11 @@ AUX_WEIGHT = 0.01
 def _emit(cfg: ArchConfig, row: torch.Tensor, payload, sampling: Optional[Dict],
           positions):
     """The token of each logits row and the step's return tuple."""
-    tok = SMP.choose_tokens(row, sampling, positions)
-    if sampling is None:
-        return tok, payload
-    return tok, payload, SMP.logprob_info(row, tok, cfg.vocab)
+    with tracing.span("fwd.sample"):
+        tok = SMP.choose_tokens(row, sampling, positions)
+        if sampling is None:
+            return tok, payload
+        return tok, payload, SMP.logprob_info(row, tok, cfg.vocab)
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

@@ -51,7 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.opq import OPQ, Buffer
 from repro_torch.models import steps as ST
@@ -442,72 +442,84 @@ class Engine:
         admitted = 0
         prefix = self.ecfg.prefix_cache
         bs = self.ecfg.block_size
-        for bucket, pairs in self.scheduler.plan_admissions(
-                self._try_lease, self._prefix_group_key if prefix else None):
-            admitted += len(pairs)
-            toks = np.zeros((len(pairs), bucket), np.int32)
-            last = np.zeros((len(pairs),), np.int32)
-            presence = np.zeros((len(pairs), self.cfg.vocab_padded), bool)
-            for i, (slot, req) in enumerate(pairs):
-                toks[i, :len(req.prompt)] = req.prompt
-                last[i] = len(req.prompt) - 1
-                presence[i, req.prompt] = True
-                self._presence[slot, :] = presence[i]
-                req.metrics.admitted_s = now()
-            smp = Buffer(stack_params([req.sampling for _, req in pairs], presence),
-                         name="sampling")
-            # the scheduler grouped rows by start chunk: no row recomputes a
-            # cached position and none skips one it needs
-            start_chunk = self._prefix_group_key(*pairs[0]) if prefix else 0
-            bufs = (self._params_buf, Buffer(toks, name=f"prefill{bucket}"), Buffer(last))
-            if start_chunk > 0:
-                kv0 = self.store.gather_prefix_rows([slot for slot, _ in pairs], bucket)
-                fut = self._dispatch_async(
-                    lambda p, t, li, k0, s, fn=self._prefill_suffix, sc=start_chunk:
-                    fn(p, t, li, k0, sc, s),
-                    *bufs, self._resident(kv0, "prefix-kv0"), smp,
-                    flags=f"prefill_prefix/{bucket}")
-                self.metrics.prefill_chunks += bucket // bs - start_chunk
-            else:
-                chunked = bucket in self._chunked_buckets
-                fut = self._dispatch_async(
-                    self._prefill_chunked if chunked else self._prefill, *bufs, smp,
-                    flags=f"prefill_chunked/{bucket}" if chunked else f"prefill/{bucket}")
-                if prefix:
-                    # cold groups compute every block-size chunk
-                    self.metrics.prefill_chunks += bucket // bs
-            dfut = None
-            if self.draft_store is not None:
-                # the draft cache holds the whole prompt through the draft's
-                # own weights (the draft store has no prefix cache)
-                dfut = self._dispatch_async(
-                    self._draft_prefill, self._draft_params_buf,
-                    Buffer(toks, name=f"draft-prefill{bucket}"), Buffer(last),
-                    flags=f"draft_prefill/{bucket}")
-            pending.append((pairs, last, fut, dfut))
+        with tracing.span("admit.plan"):
+            for bucket, pairs in self.scheduler.plan_admissions(
+                    self._try_lease, self._prefix_group_key if prefix else None):
+                admitted += len(pairs)
+                toks = np.zeros((len(pairs), bucket), np.int32)
+                last = np.zeros((len(pairs),), np.int32)
+                presence = np.zeros((len(pairs), self.cfg.vocab_padded), bool)
+                for i, (slot, req) in enumerate(pairs):
+                    toks[i, :len(req.prompt)] = req.prompt
+                    last[i] = len(req.prompt) - 1
+                    presence[i, req.prompt] = True
+                    self._presence[slot, :] = presence[i]
+                    req.metrics.admitted_s = now()
+                smp = Buffer(stack_params([req.sampling for _, req in pairs], presence),
+                             name="sampling")
+                # the scheduler grouped rows by start chunk: no row recomputes a
+                # cached position and none skips one it needs
+                start_chunk = self._prefix_group_key(*pairs[0]) if prefix else 0
+                bufs = (self._params_buf, Buffer(toks, name=f"prefill{bucket}"), Buffer(last))
+                if start_chunk > 0:
+                    kv0 = self.store.gather_prefix_rows([slot for slot, _ in pairs], bucket)
+                    fut = self._dispatch_async(
+                        lambda p, t, li, k0, s, fn=self._prefill_suffix, sc=start_chunk:
+                        fn(p, t, li, k0, sc, s),
+                        *bufs, self._resident(kv0, "prefix-kv0"), smp,
+                        flags=f"prefill_prefix/{bucket}")
+                    self.metrics.prefill_chunks += bucket // bs - start_chunk
+                else:
+                    chunked = bucket in self._chunked_buckets
+                    fut = self._dispatch_async(
+                        self._prefill_chunked if chunked else self._prefill, *bufs, smp,
+                        flags=f"prefill_chunked/{bucket}" if chunked else f"prefill/{bucket}")
+                    if prefix:
+                        # cold groups compute every block-size chunk
+                        self.metrics.prefill_chunks += bucket // bs
+                dfut = None
+                if self.draft_store is not None:
+                    # the draft cache holds the whole prompt through the draft's
+                    # own weights (the draft store has no prefix cache)
+                    dfut = self._dispatch_async(
+                        self._draft_prefill, self._draft_params_buf,
+                        Buffer(toks, name=f"draft-prefill{bucket}"), Buffer(last),
+                        flags=f"draft_prefill/{bucket}")
+                pending.append((pairs, last, fut, dfut))
         for pairs, last, fut, dfut in pending:
-            t0 = now()
+            # one pair of readings times both the span and the counter
+            t0 = tracing.now_ns()
             first, kv, lp = fut.result()
             first = first.cpu().numpy()
-            self.metrics.prefill_wait_s += now() - t0
+            t1 = tracing.now_ns()
+            tracing.record("admit.wait", t0, t1)
+            self.metrics.prefill_wait_s += (t1 - t0) / 1e9
             self.metrics.prefill_batches += 1
             self.metrics.prefill_tokens += int(last.sum()) + len(pairs)
-            t0 = now()
+            t0 = tracing.now_ns()
             slots = [slot for slot, _ in pairs]
             lens = [len(req.prompt) for _, req in pairs]
             self.store.write_slots(slots, kv, lens)
             if dfut is not None:
                 # the draft's first token is discarded: the target's is emitted
                 self.draft_store.write_slots(slots, dfut.result()[1], lens)
-            self.metrics.seed_write_s += now() - t0
-            lp = self._host_logprobs(lp, [req for _, req in pairs])
-            for i, (slot, req) in enumerate(pairs):
-                req.state = RequestState.RUNNING
-                self._emit(slot, req, [int(first[i])], lp, [i])
-                req.metrics.first_token_s = now()
-                self.metrics.observe_tokens(1)
-                if self._finished(req):
-                    self._retire(slot)
+            t1 = tracing.now_ns()
+            tracing.record("admit.write", t0, t1)
+            self.metrics.seed_write_s += (t1 - t0) / 1e9
+            with tracing.span("admit.emit"):
+                lp = self._host_logprobs(lp, [req for _, req in pairs])
+                for i, (slot, req) in enumerate(pairs):
+                    req.state = RequestState.RUNNING
+                    self._emit(slot, req, [int(first[i])], lp, [i])
+                    m = req.metrics
+                    m.first_token_s = now()
+                    tracing.record("request.queue", tracing.ns(m.arrival_s),
+                                   tracing.ns(m.admitted_s), tracing.ROOT, req=req.id)
+                    tracing.record("request.prefill", tracing.ns(m.admitted_s),
+                                   tracing.ns(m.first_token_s), tracing.ROOT, req=req.id)
+                    self.metrics.observe_tokens(1)
+                    if self._finished(req):
+                        self._retire(slot)
         return admitted
 
     def _host_logprobs(self, lp: Dict, reqs) -> Optional[Dict]:
@@ -541,22 +553,25 @@ class Engine:
                                    self._presence.copy()), name="sampling")
 
     def _decode_once(self) -> None:
-        toks, active = self.scheduler.decode_batch()
-        next_tok, cache, lp = self._dispatch(
-            self._decode, self._params_buf,
-            self._resident(self.store.decode_cache(), "kv-cache"),
-            Buffer(toks, name="decode-tokens"), self._sampling_batch(),
-            Buffer(active, name="decode-active"), flags="decode")
-        self.store.swap(cache)
-        self.metrics.decode_steps += 1
-        next_np = next_tok.cpu().numpy()
-        active = list(self.scheduler.active.items())
-        lp = self._host_logprobs(lp, [req for _, req in active])
-        for slot, req in active:
-            self._emit(slot, req, [int(next_np[slot])], lp, [slot])
-            if self._finished(req):
-                self._retire(slot)
-        self.metrics.observe_tokens(len(active))
+        with tracing.span("decode.inputs"):
+            toks, active = self.scheduler.decode_batch()
+            bufs = (self._params_buf,
+                    self._resident(self.store.decode_cache(), "kv-cache"),
+                    Buffer(toks, name="decode-tokens"), self._sampling_batch(),
+                    Buffer(active, name="decode-active"))
+        with tracing.span("decode.wait"):
+            next_tok, cache, lp = self._dispatch(self._decode, *bufs, flags="decode")
+        with tracing.span("decode.emit"):
+            self.store.swap(cache)
+            self.metrics.decode_steps += 1
+            next_np = next_tok.cpu().numpy()
+            active = list(self.scheduler.active.items())
+            lp = self._host_logprobs(lp, [req for _, req in active])
+            for slot, req in active:
+                self._emit(slot, req, [int(next_np[slot])], lp, [slot])
+                if self._finished(req):
+                    self._retire(slot)
+            self.metrics.observe_tokens(len(active))
 
     def _spec_decode_once(self) -> None:
         """One speculative draft-verify round: k+1 draft decode steps propose
@@ -696,7 +711,10 @@ class Engine:
         if self.draft_store is not None:
             self.draft_store.reset(slot)
         req.state = RequestState.DONE
-        req.metrics.finish_s = now()
+        m = req.metrics
+        m.finish_s = now()
+        tracing.record("request.decode", tracing.ns(m.first_token_s), tracing.ns(m.finish_s),
+                       tracing.ROOT, req=req.id)
         self.metrics.completed += 1
         self.completed.append(req)
 
@@ -841,21 +859,24 @@ class Engine:
     def step(self) -> None:
         """One engine iteration: join waiting requests into free slots, then
         one batched decode step for whatever is in flight."""
-        admitted = self._admit()
-        if admitted == 0 and not self.scheduler.active and self.scheduler.waiting:
-            head = self.scheduler.waiting[0]
-            raise RuntimeError(
-                f"admission livelock: request {head.id} "
-                f"(prompt={len(head.prompt)} tok, max_new_tokens="
-                f"{head.max_new_tokens}) was deferred by the store's lease with "
-                f"zero active slots; store: {self.store.memory_stats()}")
-        n_active = self.scheduler.n_active
-        if n_active:
-            if self.ecfg.speculative:
-                self._spec_decode_once()
-            else:
-                self._decode_once()
-        self.metrics.observe_step(self.scheduler.queue_depth, n_active)
+        with tracing.span("engine.step"):
+            with tracing.span("engine.admit"):
+                admitted = self._admit()
+            if admitted == 0 and not self.scheduler.active and self.scheduler.waiting:
+                head = self.scheduler.waiting[0]
+                raise RuntimeError(
+                    f"admission livelock: request {head.id} "
+                    f"(prompt={len(head.prompt)} tok, max_new_tokens="
+                    f"{head.max_new_tokens}) was deferred by the store's lease with "
+                    f"zero active slots; store: {self.store.memory_stats()}")
+            n_active = self.scheduler.n_active
+            if n_active:
+                with tracing.span("engine.decode"):
+                    if self.ecfg.speculative:
+                        self._spec_decode_once()
+                    else:
+                        self._decode_once()
+            self.metrics.observe_step(self.scheduler.queue_depth, n_active)
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()

@@ -12,12 +12,15 @@ request's ``n_generated``; the speculative counters reconcile with it
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
+
+from repro_torch import tracing
 
 
 def now() -> float:
-    return time.monotonic()
+    """Seconds on the span recorder's clock (``tracing.now_ns``), so request
+    timestamps and spans agree."""
+    return tracing.now_ns() / 1e9
 
 
 @dataclasses.dataclass
