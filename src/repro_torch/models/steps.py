@@ -27,6 +27,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.core import tensorizer as tz
 from repro_torch.distributed import sharding as shd
+from repro_torch.models import decode_graph as DG
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.attention import DecodeRows, cache_spec
@@ -138,18 +139,20 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
     return decode_step
 
 
-def make_paged_decode_step(cfg: ArchConfig, use_kernel: bool = True) -> Callable:
+def make_paged_decode_step(cfg: ArchConfig, use_kernel: bool = True) -> DG.GraphedDecodeStep:
     """Block-native decode step: ``(params, cache, tokens (B, 1))`` ->
     ``(next_tokens (B,), cache)``, through the paged-attention kernel with
     ``use_kernel`` (float KV) or the plain gather and contraction; ``active``
-    as in :func:`make_decode_step`."""
+    as in :func:`make_decode_step`. On the card it replays as one CUDA
+    graph where the family allows (models/decode_graph.py), with the same
+    results bit for bit."""
     def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                     sampling: Optional[Dict] = None,
                     active: Optional[torch.Tensor] = None):
         logits, cache = SV.decode_paged(params, cfg, cache, tokens, use_kernel=use_kernel,
                                         active=active)
         return _emit(cfg, logits[:, -1], cache, sampling, cache["index"])
-    return decode_step
+    return DG.GraphedDecodeStep(cfg, decode_step)
 
 
 def make_verify_step(cfg: ArchConfig, window: int) -> Callable:

@@ -20,7 +20,8 @@ hits, the suffix scan over the chunks the cached prefix does not cover; for
 a recurrent model, the masked replay of its decode body over the bucket.
 Every device step is an OPQ instruction, so buffer affinity and backup
 re-issue apply to serving traffic; the per-flag instruction counts are the
-dispatch audit trail.
+dispatch audit trail. On the card the block-native decode step replays as
+one CUDA graph where its family allows (models/decode_graph.py).
 
 Decode is batch-invariant: every slot computes the math of a
 single-request decode at its own position (per-row activation scales,
@@ -287,6 +288,8 @@ class Engine:
                                 if self.ecfg.prefix_cache else None)
         self._decode = (ST.make_paged_decode_step(cfg, use_kernel=self.ecfg.paged_kernel)
                         if self.ecfg.paged_native else ST.make_decode_step(cfg))
+        # the block-native step's graph counters (models/decode_graph.py)
+        self._decode_graph = self._decode if self.ecfg.paged_native else None
         self._embed = ST.make_embed_step(cfg, rows)
         self._owns_opq = opq is None and self.ecfg.use_opq
         self.opq = ((OPQ([self.device]) if self._owns_opq else opq)
@@ -564,6 +567,9 @@ class Engine:
         with tracing.span("decode.emit"):
             self.store.swap(cache)
             self.metrics.decode_steps += 1
+            if self._decode_graph is not None:
+                self.metrics.decode_graph_captures = self._decode_graph.captures
+                self.metrics.decode_graph_replays = self._decode_graph.replays
             next_np = next_tok.cpu().numpy()
             active = list(self.scheduler.active.items())
             lp = self._host_logprobs(lp, [req for _, req in active])

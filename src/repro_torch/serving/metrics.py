@@ -108,6 +108,10 @@ class EngineMetrics:
     imported_blocks: int = 0                   # pool blocks adopted verbatim
     prefill_wait_s: float = 0.0                # wall time blocked on prefills
     seed_write_s: float = 0.0                  # wall time in admission writes
+    decode_graph_captures: int = 0             # CUDA graphs captured of the
+                                               # block-native decode step
+    decode_graph_replays: int = 0              # decode steps replayed as one
+                                               # (models/decode_graph.py)
     steps: int = 0
     queue_depth_sum: int = 0
     occupancy_sum: int = 0
@@ -163,6 +167,8 @@ class EngineMetrics:
             "imported_blocks": self.imported_blocks,
             "prefill_wait_s": self.prefill_wait_s,
             "seed_write_s": self.seed_write_s,
+            "decode_graph_captures": self.decode_graph_captures,
+            "decode_graph_replays": self.decode_graph_replays,
             "sustained_tok_s": self.sustained_tok_s(),
             "mean_queue_depth": self.queue_depth_sum / max(self.steps, 1),
             "mean_occupancy": self.occupancy_sum / max(self.steps, 1),

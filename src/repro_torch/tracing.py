@@ -23,7 +23,9 @@ Spans, by thread (children indented)::
                      per request, from its RequestMetrics timestamps)
     OPQ lane:      opq.run (flags)
                      opq.issue: fwd.embed, fwd.layer (i): fwd.attn, fwd.ffn;
-                                fwd.head, fwd.sample
+                                fwd.head, fwd.sample; or, for a decode step
+                                replayed as a CUDA graph, fwd.graph
+                                (captured_launches, capture=0/1)
                      opq.sync
 """
 
