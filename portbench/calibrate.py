@@ -55,9 +55,9 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         rec, peak, _ = execute(cell, seed, args.seconds, False, device, judge=False)
         samples = check.sample(rec, seed)
-        ref = check.reference_logits(m, seed, samples, device, bits=8)
+        ref = check.reference_logits(cell.config, m, seed, samples, device, bits=8)
         gaps = check.served_gaps(ref, samples)
-        low = check.reference_logits(m, seed, samples, device, bits=4)
+        low = check.reference_logits(cell.config, m, seed, samples, device, bits=4)
         ctl = check.control_gaps(ref, low)
         line = {"seed": seed, "program": _stats(gaps), "control": _stats(ctl),
                 "requests": len(samples), "readings": every_reading(rec),

@@ -6,12 +6,22 @@ Phases, all timed on the host's monotonic clock:
    tokens each;
 2. ramp: the clients start, ``ramp_wave`` per engine step, each with a
    first request whose output budget is cut so that the first requests
-   end spread out (``Traffic.ramp_request``); the ramp ends once every
+   end spread out (``Traffic.ramp_request``); client ``c``'s ``j``-th
+   request is ``Traffic.key(c, j)``; the ramp ends once every
    client's first request has its first token;
-3. window: from the ramp's end ``t0`` for ``seconds``; the loop runs
-   whole engine steps until the first that ends at or after ``t0 +
-   seconds`` (``t_stop``); each client sends its next request as soon as
-   it sees its last one finish;
+3. window: from the ramp's end ``t0``, whole engine steps until
+   ``t_stop``, the end of the first step by which the window has emitted
+   its work, ``work_tokens`` output tokens (the cell's
+   ``window_out_tok_s`` times ``seconds``): every run then times the same
+   work, since the traffic sends the same sizes in the same order for
+   every seed. The loop's output comes in bursts, a step of admissions
+   lasting seconds between decode steps of some 50 ms, so a window cut at
+   a time instead ends before or after a burst as the card runs a little
+   faster or slower, and moves the rate several times as much as the
+   speed. A window that has not done its work by ``CAP`` times
+   ``seconds``, and one without ``work_tokens``, closes at the first step
+   that ends at or after ``t0`` plus that time. Each client sends its next
+   request as soon as it sees its last one finish;
 4. drain: no new request; steps go on until every request that arrived in
    the window has its first token (at most ``DRAIN_S`` past the close).
 
@@ -34,6 +44,7 @@ from portbench.model import Model
 from portbench.traffic import Traffic, warmup_lengths
 
 DRAIN_S = 60.0
+CAP = 3.0
 COUNTERS = ("decode_steps", "steps", "occupancy_sum", "prefill_wait_s", "prefill_tokens")
 
 
@@ -44,7 +55,7 @@ def now() -> float:
 @dataclasses.dataclass
 class Served:
     """One request as its client sees it."""
-    k: int                      # index in the mix's request sequence
+    k: int                      # the request's index (Traffic.key)
     client: int
     prompt_len: int
     budget: int
@@ -70,8 +81,9 @@ class Record:
     """Everything a run measured; the metric readers read this."""
     model: Model
     t0: float = 0.0
-    seconds: float = 0.0        # the window's length as asked
-    t_stop: float = 0.0         # the end of the step that crossed t0 + seconds
+    seconds: float = 0.0        # the length the rate is taken over: as asked, or as
+                                # the window ran where its work sized it
+    t_stop: float = 0.0         # the end of the window's last step
     setup_s: float = 0.0
     served: List[Served] = dataclasses.field(default_factory=list)
     steps: List[Step] = dataclasses.field(default_factory=list)   # window steps
@@ -103,15 +115,15 @@ class Loop:
         self._live: List[Served] = []
         self._ready: List[Tuple[int, float]] = []     # (client, due)
         self._ready_later: List[int] = []             # clients refused last step
-        self._next_k = 0
+        self._sent = [0] * traffic.clients              # requests each client sent
 
     # ----------------------------------------------------------- clients
 
     def _submit_ready(self, ramp: bool = False) -> None:
         for client, due in self._ready:
-            k = self._next_k
-            self._next_k += 1
-            prompt, budget = (self.traffic.ramp_request(k, client) if ramp
+            k = self.traffic.key(client, self._sent[client])
+            self._sent[client] += 1
+            prompt, budget = (self.traffic.ramp_request(k) if ramp
                               else self.traffic.request(k))
             s = Served(k=k, client=client, prompt_len=len(prompt), budget=budget, due=due)
             s.req = self.eng.submit(prompt, max_new_tokens=budget)
@@ -165,7 +177,7 @@ class Loop:
                 self.eng.step()
 
     def run(self, seconds: float, on_open: Callable = lambda: None,
-            on_close: Callable = lambda: None) -> Record:
+            on_close: Callable = lambda: None, work_tokens: Optional[int] = None) -> Record:
         self.warmup()
         self.rec.marks["warmup"] = now()
         clients, wave = self.traffic.clients, self.traffic.ramp_wave
@@ -190,6 +202,7 @@ class Loop:
         rec.seconds = seconds
         self._ready = [(c, max(due, rec.t0)) for c, due in self._ready]
         before = self._counters()
+        emitted = 0
         while True:
             self._submit_ready()
             step = self._step(accepting=True)
@@ -197,9 +210,15 @@ class Loop:
             if blocks is not None:
                 step.blocks_used, rec.pool_blocks = blocks
             rec.steps.append(step)
-            if step.end >= rec.t0 + seconds:
+            emitted += step.tokens
+            if work_tokens is None:
+                if step.end >= rec.t0 + seconds:
+                    break
+            elif emitted >= work_tokens or step.end >= rec.t0 + CAP * seconds:
                 break
         rec.t_stop = rec.steps[-1].end
+        if work_tokens is not None:
+            rec.seconds = rec.window_s
         after = self._counters()
         on_close()
         rec.counters = {k: after[k] - before[k] for k in COUNTERS}

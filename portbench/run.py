@@ -5,7 +5,9 @@ one JSON result as the last line of standard output.
 
 One process, one card: it builds the seeded weights and the port's engine,
 warms up the cell's shapes and ramps its clients (set-up), drives the
-closed loop for ``--seconds`` (the window), then judges a sample of what
+closed loop for ``--seconds`` (the window; where the cell's file gives
+``window_out_tok_s``, for the work that rate does in ``--seconds``,
+``portbench/loop.py``), then judges a sample of what
 the engine served against the plain reference (``correct``). With
 ``--trace 0`` it reports the cell's end-to-end metrics, with ``--trace 1``
 its per-layer metrics from a traced window. It exits with another code
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -118,8 +121,10 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, *, judge: bool
     loop.rec.marks.update(marks)
     tracer = devtrace.Tracer(eng) if trace else None
     try:
+        rate = cell.window_out_tok_s
         rec = loop.run(seconds, on_open=tracer.start if tracer else (lambda: None),
-                       on_close=tracer.stop if tracer else (lambda: None))
+                       on_close=tracer.stop if tracer else (lambda: None),
+                       work_tokens=math.ceil(seconds * rate) if rate else None)
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     finally:
         eng.close()
@@ -131,7 +136,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, *, judge: bool
     if tracer is not None:
         rec.trace = tracer.summary(rec.t0, rec.t_stop)
         tracer.prof = None
-    checks = check.judge(m, seed, rec, cell.limits, device) if judge else None
+    checks = check.judge(cell.config, m, seed, rec, cell.limits, device) if judge else None
     rec.marks["judged"] = time.perf_counter()
     return rec, peak, checks
 

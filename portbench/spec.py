@@ -4,7 +4,9 @@ file of its own under this folder.
 
 * ``configs/<file>``: the configuration (``BENCHMARK.json`` names its file);
 * ``traffic/<traffic>.json``: the mix (``portbench/traffic.py``);
-* ``workloads/<cell>.json``: the cell's engine settings and its limits;
+* ``workloads/<cell>.json``: the cell's engine settings, its limits and,
+  where given, ``window_out_tok_s``, the rate that sizes the window's work
+  (``portbench/loop.py``);
 * ``e2e/<metric>.py`` and ``metrics/<metric>.py``: one reader per
   end-to-end and per-layer metric, ``read(record) -> float | None``.
 """
@@ -15,7 +17,7 @@ import dataclasses
 import importlib.util
 import json
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -48,6 +50,7 @@ class Cell:
     limits: Dict               # the correctness limits
     end_to_end: List[Dict]     # the manifest's metric entries this cell reports
     per_layer: List[Dict]
+    window_out_tok_s: Optional[float] = None   # sizes the window's work (loop.py)
 
 
 def _reports(entry: Dict, cell: str) -> bool:
@@ -67,7 +70,8 @@ def cell(name: str, man: Dict = None) -> Cell:
     return Cell(name=name, chips=int(w["chips"]), config=config,
                 traffic=load_json(BENCH / "traffic" / f"{w['traffic']}.json"),
                 store=config["store"], engine=spec["engine"], limits=spec["limits"],
-                end_to_end=e2e, per_layer=per_layer)
+                end_to_end=e2e, per_layer=per_layer,
+                window_out_tok_s=spec.get("window_out_tok_s"))
 
 
 def reader(kind: str, name: str) -> Callable:

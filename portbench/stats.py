@@ -22,7 +22,9 @@ def output_tok_s(rec: Record) -> float:
     the steps that end inside it, and of the step that crosses its end the
     share of its tokens that its part inside the window is of its length
     (a step can last seconds, so whether it ends just inside or just
-    outside would otherwise move the rate by its whole length)."""
+    outside would otherwise move the rate by its whole length). A window
+    that its work closed takes its whole length, so all of its tokens
+    count."""
     end = rec.t0 + rec.seconds
     tokens = 0.0
     for st in rec.steps:

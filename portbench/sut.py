@@ -15,6 +15,28 @@ The program surface used: ``repro_torch.configs.get_config``,
 ``repro_torch.serving.engine`` (``Engine``, ``EngineConfig``; ``submit``,
 ``step``, the request's ``tokens`` and ``done``, ``metrics``,
 ``store.memory_stats()``, ``scheduler.buckets``, ``close``).
+
+A mixture-of-experts file (``family`` moe) also fixes the port's
+``n_experts``, ``n_shared_experts``, ``topk`` and ``d_ff`` (one expert's
+width). Its layers are the port's ``moe`` subtree (``models/moe.py``
+``init_moe``: ``router``, ``wi``, ``wg``, ``wo``, ``shared``), quantized as
+the port's serve path quantizes them: every projection int8, the router
+float. The two published departures of DeepSeek-MoE from the port's MoE
+block are checked, not assumed:
+
+* leading dense layers: where the file has ``first_k_dense_replace`` k >
+  0, the harness passes the first k layers (attention and the SwiGLU MLP
+  of width ``intermediate_size``) stacked under ``params["dense_layers"]``
+  and the rest under ``params["layers"]``, and the port's config must have
+  ``first_k_dense == k`` and ``dense_d_ff == intermediate_size``;
+* the gates: the port's ``norm_topk_prob`` must equal the file's (true:
+  the k gates renormalised to sum to 1; false: the softmax over all
+  experts kept as it is).
+
+A port config without one of these fields counts as the port's present
+behaviour (``ABSENT``: no leading dense layer, renormalised gates), so a
+file that states the published values fails, naming the field, until the
+port gains it.
 """
 
 from __future__ import annotations
@@ -25,6 +47,10 @@ import torch
 
 from portbench import weights as W
 from portbench.model import Model
+
+
+# what a port config that lacks the field does (module doc)
+ABSENT = {"first_k_dense": 0, "dense_d_ff": None, "norm_topk_prob": True}
 
 
 def _expected(m: Model, c: Dict) -> Dict:
@@ -38,8 +64,23 @@ def _expected(m: Model, c: Dict) -> Dict:
         "tie_embeddings": bool(c.get("tie_word_embeddings", False)),
         "dtype": serving["compute_dtype"], "kv_cache_dtype": serving["kv_cache_dtype"],
     }
-    exp["d_ff"] = m.d_ff
+    if m.family != "moe":
+        exp["d_ff"] = m.d_ff
+        return exp
+    exp.update(d_ff=m.expert_ff, n_experts=m.n_experts, n_shared_experts=m.n_shared,
+               topk=m.topk, first_k_dense=m.first_k_dense, norm_topk_prob=m.norm_topk_prob)
+    if m.first_k_dense:
+        exp["dense_d_ff"] = m.d_ff
     return exp
+
+
+def differences(cfg, m: Model, c: Dict) -> Dict:
+    """(port, file) of every field of ``_expected`` in which the port's
+    config ``cfg`` differs from file ``c`` (a missing field read as
+    ``ABSENT`` says)."""
+    exp = _expected(m, c)
+    got = {k: getattr(cfg, k, ABSENT.get(k)) for k in exp}
+    return {k: (got[k], v) for k, v in exp.items() if got[k] != v}
 
 
 def port_config(c: Dict):
@@ -53,8 +94,7 @@ def port_config(c: Dict):
         cfg = cfg.smoke()
     m = Model.from_config(c)
     cfg = cfg.replace(quantize="serve", rope_theta=m.rope_theta)
-    wrong = {k: (getattr(cfg, k), v) for k, v in _expected(m, c).items()
-             if getattr(cfg, k) != v}
+    wrong = differences(cfg, m, c)
     if wrong:
         raise ValueError(f"the port's {c['arch']} config differs from "
                          f"{c['name']}'s file (port, file): {wrong}")
@@ -74,7 +114,7 @@ def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
 
 def _layer_tree(m: Model, leaves: Dict[str, torch.Tensor], device) -> Dict:
     """One layer in the port's tree: norms (unit scales), attention and
-    the MLP."""
+    the MLP or the ``moe`` block, nested from the leaves' dotted names."""
     ones = lambda n: torch.ones((n,), dtype=torch.float32, device=device)  # noqa: E731
     tree = _nest(leaves)
     tree["ln1"] = {"scale": ones(m.d_model)}
@@ -86,10 +126,11 @@ def _layer_tree(m: Model, leaves: Dict[str, torch.Tensor], device) -> Dict:
 
 
 def _quantize(tree: Dict) -> Dict:
-    """The port's quantization of every projection: each >= 2-D leaf (the
-    serve path's float leaves are the norms and the embedding)."""
+    """The port's quantization of every projection: each >= 2-D leaf but
+    the MoE router (the serve path's float leaves are the norms, the
+    embedding and the router)."""
     from repro_torch.core import tensorizer as tz
-    return tz.quantize_params(tree)
+    return tz.quantize_params(tree, lambda path, leaf: path[-1] != "router")
 
 
 def _stacked_like(tree, n: int):
@@ -116,7 +157,8 @@ def _put(stacked, tree, i: int) -> None:
 
 def port_params(m: Model, cfg, seed: int, device) -> Dict:
     """The port's W8A8 serving params from the seeded float weights, made
-    and quantized one layer at a time on ``device``."""
+    and quantized one layer at a time on ``device``; an MoE file's leading
+    dense layers stacked apart under ``dense_layers`` (module doc)."""
     from repro_torch.core import tensorizer as tz
     pad = cfg.vocab_padded - m.vocab
     emb = W.embedding(m, seed, device)
@@ -130,14 +172,17 @@ def port_params(m: Model, cfg, seed: int, device) -> Dict:
                                                device=device)},
               "lm_head": tz.quantize(head, axis=-2)}
     del head
-    stacked = None
-    for i in range(m.n_layers):
-        layer = _quantize(_layer_tree(m, W.layer(m, seed, i, device), device))
-        if stacked is None:
-            stacked = _stacked_like(layer, m.n_layers)
-        _put(stacked, layer, i)
-        del layer
-    params["layers"] = stacked
+    k = m.first_k_dense
+    for key, first, end in (("dense_layers", 0, k), ("layers", k, m.n_layers)):
+        stacked = None
+        for i in range(first, end):
+            layer = _quantize(_layer_tree(m, W.layer(m, seed, i, device), device))
+            if stacked is None:
+                stacked = _stacked_like(layer, end - first)
+            _put(stacked, layer, i - first)
+            del layer
+        if stacked is not None:
+            params[key] = stacked
     return params
 
 

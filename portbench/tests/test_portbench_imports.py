@@ -2,12 +2,16 @@
 package (top-level names compared whole), no file under ``benchmarks/``,
 nothing in ``/dev/shm``, writes only inside the checkout, ``HOME``,
 ``XDG_CACHE_HOME`` and ``TMPDIR``. A reduced cell runs end to end on the
-CPU in a child process that records every file it opens."""
+CPU in a child process that records every file it opens. Each module of
+the plain reference, imported alone in a child process, loads nothing of
+the program (``repro_torch``) and nothing of JAX or the JAX package."""
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 import pbtest
 
@@ -25,16 +29,35 @@ def hook(event, args):
         opened.append((path, write))
 sys.addaudithook(hook)
 sys.path[:0] = [sys.argv[1]]
+import pytest
+
 import pbtest
 import torch
 from portbench import check, run
-for name in ("qwen3-14b.chat",):
+for name in pbtest.CASES:
     cell = pbtest.smoke_cell(name)
     rec, _, checks = run.execute(cell, 11, 1.0, False, torch.device("cpu"))
     assert check.passed(checks), checks
 print(json.dumps({"banned": run.banned_modules(), "opened": opened,
                   "modules": sorted({m.split(".")[0] for m in sys.modules})}))
 """
+
+
+REFERENCES = sorted(p.stem for p in (pbtest.ROOT / "portbench" / "reference").glob("*.py")
+                    if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("name", REFERENCES)
+def test_a_reference_module_loads_nothing_of_the_program(name):
+    code = ("import importlib, json, sys; sys.path[:0] = [sys.argv[1]]; "
+            f"importlib.import_module('portbench.reference.{name}'); "
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
+    out = subprocess.run([sys.executable, "-B", "-c", code, str(pbtest.ROOT)],
+                         capture_output=True, text=True, timeout=300, cwd=str(pbtest.ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert "torch" in loaded
+    assert not loaded & (set(run.BANNED) | {"repro_torch"}), loaded
 
 
 def test_names_are_compared_whole(monkeypatch):

@@ -8,7 +8,7 @@ import pytest
 
 import pbtest  # noqa: F401  (import path)
 
-from portbench import spec, sut
+from portbench import check, spec, sut
 from portbench.model import Model
 
 MAN = spec.manifest()
@@ -112,7 +112,8 @@ def test_configurations(entry):
 def test_cell_files(name):
     cell = spec.cell(name)
     assert cell.limits and all(v > 0 for v in cell.limits.values())
-    assert set(cell.limits) <= {"logit_gap", "mean_gap"}
+    assert cell.window_out_tok_s is None or cell.window_out_tok_s > 0
+    assert set(cell.limits) <= set(check.READINGS)
     mix = cell.traffic
     assert mix["loop"] == "closed" and mix["clients"] <= cell.engine["max_slots"]
     assert mix["clients"] <= cell.engine["max_queue"]

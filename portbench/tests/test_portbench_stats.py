@@ -2,11 +2,14 @@
 the window shows in both."""
 
 import math
+import time
+import types
 
 import pbtest  # noqa: F401  (import path)
 
 from portbench import spec, stats
-from portbench.loop import Record, Served, Step
+from portbench.loop import Loop, Record, Served, Step
+from portbench.traffic import Traffic
 from portbench.model import Model
 
 M = Model(family="dense", n_layers=1, d_model=8, n_heads=1, n_kv=1, head_dim=8, vocab=16, d_ff=8)
@@ -80,3 +83,52 @@ def test_ttft_runs_from_due_and_a_failed_request_is_missing():
     rec.served.append(Served(k=11, client=2, prompt_len=4, budget=2, due=rec.t_stop,
                              stamps=[rec.t_stop + 1]))
     assert len(rec.arrivals()) == 6
+
+
+class _Engine:
+    """Stands in for the port's engine: every live request gets one token a
+    step, and a step lasts ``pause`` seconds more for each request it
+    admits, as the card's admissions do."""
+
+    def __init__(self, pause):
+        self.pause, self.live, self.waiting = pause, [], []
+        self.scheduler = types.SimpleNamespace(buckets=())
+        self.store = types.SimpleNamespace(memory_stats=dict)
+        self.metrics = types.SimpleNamespace(decode_steps=0, steps=0, occupancy_sum=0,
+                                             prefill_wait_s=0.0, prefill_tokens=0)
+
+    def submit(self, prompt, max_new_tokens):
+        req = types.SimpleNamespace(prompt=prompt, tokens=[], done=False, n=max_new_tokens)
+        self.waiting.append(req)
+        return req
+
+    def step(self):
+        time.sleep(self.pause * len(self.waiting))
+        self.live += self.waiting
+        self.waiting = []
+        for r in self.live:
+            r.tokens.append(1)
+            r.done = len(r.tokens) >= r.n
+        self.live = [r for r in self.live if not r.done]
+
+
+def _window(pause, work_tokens):
+    mix = dict(spec.load_json(spec.BENCH / "traffic" / "chat.json"), clients=4, ramp_wave=4,
+               prompt_len={"dist": "lognormal", "median": 20, "sigma": 0.5, "lo": 8, "hi": 40},
+               output_len={"dist": "lognormal", "median": 8, "sigma": 0.4, "lo": 4, "hi": 12})
+    rec = Loop(_Engine(pause), Traffic(mix, 1000, 7), M).run(0.05, work_tokens=work_tokens)
+    return rec, [st.tokens for st in rec.steps]
+
+
+def test_a_window_closes_on_its_work():
+    """A window sized by its work runs the same steps whatever the speed,
+    and its rate takes all of its tokens over all of its time; the CAP
+    closes one whose work does not come."""
+    fast, fast_steps = _window(0.0, 40)
+    slow, slow_steps = _window(0.002, 40)
+    assert fast_steps == slow_steps and sum(fast_steps) >= 40 > sum(fast_steps[:-1])
+    for rec in (fast, slow):
+        assert rec.seconds == rec.window_s
+        assert abs(stats.output_tok_s(rec) - sum(slow_steps) / rec.window_s) < 1e-9
+    capped, _ = _window(0.0, 10 ** 9)
+    assert 0.15 <= capped.window_s < 0.3 and capped.seconds == capped.window_s

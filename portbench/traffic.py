@@ -8,28 +8,30 @@ A mix file (``traffic/<name>.json``) holds:
   wave an engine step;
 * ``prompt_len`` and ``output_len``: ``{"dist": "lognormal", "median",
   "sigma", "lo", "hi"}`` in tokens, a log-normal truncated to [lo, hi];
-* ``block``: the sizes are drawn in blocks of this many requests;
 * ``source``: where the distributions come from.
 
-Every size is drawn from the run's seed, stratified: in each block,
-request ``i``'s prompt length is drawn inside the ``i``-th of ``block``
-equally likely strata of the prompt distribution, its output length
-inside a stratum of the output distribution that a permutation drawn from
-the seed pairs with it, and the block is sent in an order drawn from the
-seed. So every seed sends its own sizes, tails included, while each block
-covers both distributions once: in a closed loop the window serves some
-tens of requests, and independent draws would change its work from seed
-to seed by far more than the host's noise does. The run's seed also draws
+Every seed sends the same sizes in the same order: the seed draws the
+token ids, never the amount of work or its order. Client ``c`` sends
+request ``c`` of every round, round ``j`` holding each client's ``j``-th
+request, and every round covers both distributions once, at the
+midpoints of ``clients`` equally likely strata, the prompt and output
+strata dealt to the clients by permutations that are the same for every
+seed. In a closed loop on a full pool the window serves some tens of
+requests, about one round, and which of them it serves follows from every
+size and arrival before it: sizes drawn anew for every seed moved the
+window's work, and its rate, by some 15% from seed to seed, far more than
+the host's noise does, and an order drawn anew would move it too. The
+run's seed also draws
 every token id (uniform over the configuration's vocabulary) and,
 elsewhere, the weights.
 
 Every request is greedy. Each client's first request, sent in the ramp,
-is set-up traffic: the mix's request with its budget cut to a share
-(i + 1/2) / clients of it, the shares in an order drawn from the seed, so
-the first requests end spread out as they would in a loop that had been
-running, and the window can open as soon as every client has been
-admitted. Prompts are not cut: the first requests fill the pool as the
-window's will.
+is set-up traffic: the first round's request with the budget cut to a
+share (i + 1/2) / clients of it, the shares dealt to the clients by a
+permutation that is the same for every seed, so the first requests end
+spread out as they would in a loop that had been running, and the window
+can open as soon as every client has been admitted. Prompts are not cut:
+the first requests fill the pool as the window's will.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 
 _SEED_MASK = (1 << 64) - 1
 _NORMAL = NormalDist()
+_DEAL = 0x5EED       # the stream of the deals that every seed shares
 
 
 def stratified(dist: Dict, u: np.ndarray) -> np.ndarray:
@@ -59,8 +62,9 @@ def stratified(dist: Dict, u: np.ndarray) -> np.ndarray:
 
 
 class Traffic:
-    """The requests of one mix for one seed, by index: request ``k`` has
-    the same size and token ids in every run of that seed."""
+    """The requests of one mix for one seed, by index: request ``k`` is
+    client ``k % clients``'s request of round ``k // clients``; its size is
+    the same for every seed, its token ids in every run of that seed."""
 
     def __init__(self, mix: Dict, vocab: int, seed: int):
         if mix.get("loop") != "closed":
@@ -68,36 +72,32 @@ class Traffic:
         self.mix = mix
         self.vocab = vocab
         self.seed = int(seed) & _SEED_MASK
-        self.clients = int(mix["clients"])
-        self.ramp_wave = int(mix.get("ramp_wave", self.clients))
-        self.block = int(mix["block"])
-        self._blocks: Dict[int, np.ndarray] = {}
-        self._shares = np.random.default_rng([self.seed, 4]).permutation(self.clients)
+        self.clients = n = int(mix["clients"])
+        self.ramp_wave = int(mix.get("ramp_wave", n))
+        mid = (np.arange(n) + 0.5) / n
+        self._lengths = (stratified(mix["prompt_len"], mid), stratified(mix["output_len"], mid))
+        self._rounds: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._shares = np.random.default_rng([_DEAL, 4]).permutation(n)
 
     def prompt_range(self) -> Tuple[int, int]:
         """(shortest, longest) prompt the mix can send."""
         d = self.mix["prompt_len"]
         return int(d["lo"]), int(d["hi"])
 
-    def _sizes(self, b: int) -> np.ndarray:
-        """Block ``b``'s (prompt, output) sizes in the order they are sent."""
-        sizes = self._blocks.get(b)
-        if sizes is None:
-            n = self.block
-            rng = np.random.default_rng([self.seed, 5, b])
-            strata = np.arange(n)
-            prompts = stratified(self.mix["prompt_len"], (strata + rng.random(n)) / n)
-            outputs = stratified(self.mix["output_len"], (strata + rng.random(n)) / n)
-            sizes = np.stack([prompts, outputs[rng.permutation(n)]], axis=1)
-            sizes = sizes[rng.permutation(n)]
-            self._blocks[b] = sizes
-        return sizes
+    def key(self, client: int, j: int) -> int:
+        """The index of ``client``'s ``j``-th request (0 is its first)."""
+        return j * self.clients + client
 
     def sizes(self, k: int) -> Tuple[int, int]:
         """(prompt length, output budget) of request ``k``."""
-        b, i = divmod(k, self.block)
-        p, o = self._sizes(b)[i]
-        return int(p), int(o)
+        j, c = divmod(k, self.clients)
+        deal = self._rounds.get(j)
+        if deal is None:
+            rng = np.random.default_rng([_DEAL, 5, j])
+            deal = self._rounds[j] = (rng.permutation(self.clients),
+                                      rng.permutation(self.clients))
+        prompts, outputs = self._lengths
+        return int(prompts[deal[0][c]]), int(outputs[deal[1][c]])
 
     def request(self, k: int) -> Tuple[np.ndarray, int]:
         """Request ``k``: its prompt (int32 token ids) and output budget."""
@@ -105,10 +105,11 @@ class Traffic:
         ids = np.random.default_rng([self.seed, 1, k]).integers(0, self.vocab, p)
         return ids.astype(np.int32), o
 
-    def ramp_request(self, k: int, client: int) -> Tuple[np.ndarray, int]:
-        """Request ``k`` as ``client``'s first, cut (module doc)."""
+    def ramp_request(self, k: int) -> Tuple[np.ndarray, int]:
+        """Request ``k`` of the first round, its budget cut (module doc)."""
         prompt, budget = self.request(k)
-        return prompt, max(1, int(budget * (self._shares[client] + 0.5) / self.clients))
+        share = self._shares[k % self.clients]
+        return prompt, max(1, int(budget * (share + 0.5) / self.clients))
 
     def warmup_prompt(self, length: int, i: int) -> np.ndarray:
         """A prompt for set-up only, from its own stream."""

@@ -8,7 +8,11 @@ embedding N(0, 0.02^2), norm scales 1. The weights are f32 masters: the
 program quantizes them on its own path, and the reference works out the
 same quantization again from these floats.
 
-Names follow the decoder's layer: attention and a SwiGLU MLP.
+Names follow the decoder's layer: attention, then a SwiGLU MLP (``mlp.*``)
+or, in an MoE layer, the block of ``repro_torch.models.moe.init_moe``:
+``moe.router`` (D, E), the routed experts ``moe.wi``, ``moe.wg`` (E, D, F)
+and ``moe.wo`` (E, F, D), and the shared experts' MLP ``moe.shared.*`` of
+width ``n_shared * F``.
 """
 
 from __future__ import annotations
@@ -36,8 +40,12 @@ def _lecun(seed: int, layer: int, name: str, shape, fan_in: int, device) -> torc
     return w.mul_(fan_in ** -0.5)
 
 
-def layer_shapes(m: Model) -> Dict[str, tuple]:
-    """Every random leaf of one layer, by name: (shape, fan_in)."""
+def _mlp_shapes(prefix: str, D: int, F: int) -> Dict[str, tuple]:
+    return {prefix + "wi": ((D, F), D), prefix + "wg": ((D, F), D), prefix + "wo": ((F, D), F)}
+
+
+def layer_shapes(m: Model, i: int) -> Dict[str, tuple]:
+    """Every random leaf of layer ``i``, by name: (shape, fan_in)."""
     D, H, KV, hd = m.d_model, m.n_heads, m.n_kv, m.head_dim
     shapes = {
         "attn.wq": ((D, H * hd), D),
@@ -45,12 +53,18 @@ def layer_shapes(m: Model) -> Dict[str, tuple]:
         "attn.wv": ((D, KV * hd), D),
         "attn.wo": ((H * hd, D), H * hd),
     }
-    F = m.d_ff
+    if not m.is_moe_layer(i):
+        shapes.update(_mlp_shapes("mlp.", D, m.d_ff))
+        return shapes
+    E, F = m.n_experts, m.expert_ff
     shapes.update({
-        "mlp.wi": ((D, F), D),
-        "mlp.wg": ((D, F), D),
-        "mlp.wo": ((F, D), F),
+        "moe.router": ((D, E), D),
+        "moe.wi": ((E, D, F), D),
+        "moe.wg": ((E, D, F), D),
+        "moe.wo": ((E, F, D), F),
     })
+    if m.n_shared:
+        shapes.update(_mlp_shapes("moe.shared.", D, m.n_shared * F))
     return shapes
 
 
@@ -58,7 +72,7 @@ def layer(m: Model, seed: int, i: int, device) -> Dict[str, torch.Tensor]:
     """Layer ``i``'s random leaves, f32, by name (norm scales are all ones
     and are not drawn)."""
     return {name: _lecun(seed, i, name, shape, fan_in, device)
-            for name, (shape, fan_in) in layer_shapes(m).items()}
+            for name, (shape, fan_in) in layer_shapes(m, i).items()}
 
 
 def embedding(m: Model, seed: int, device) -> torch.Tensor:
