@@ -51,6 +51,12 @@ class ArchConfig:
     n_shared_experts: int = 0
     topk: int = 0
     capacity_factor: float = 1.25
+    # the port's own (the JAX package's block by default): leading layers
+    # with the dense MLP of width dense_d_ff before the MoE layers, and
+    # whether the k gates are renormalised to sum to 1
+    first_k_dense: int = 0
+    dense_d_ff: Optional[int] = None
+    norm_topk_prob: bool = True
     # ---- SSM / hybrid ----
     ssm_state: int = 0
     ssm_headdim: int = 64
@@ -117,6 +123,7 @@ class ArchConfig:
             n_heads=4,
             n_kv=min(self.n_kv, 2) if self.n_kv < self.n_heads else 4,
             d_ff=128 if self.d_ff else 0,
+            dense_d_ff=128 if self.dense_d_ff else self.dense_d_ff,
             vocab=256,
             head_dim=16,
             n_experts=min(self.n_experts, 4),
@@ -133,15 +140,23 @@ class ArchConfig:
     # analytics: the reference's formulas, approximation included
     # ------------------------------------------------------------------
 
+    @property
+    def n_moe_layers(self) -> int:
+        """Layers with the MoE block: all but the ``first_k_dense`` leading
+        ones of an MoE config."""
+        return self.n_layers - self.first_k_dense if self.family == "moe" else 0
+
     def param_count(self) -> int:
         """Approximate parameter count (embedding + stacked blocks), the
-        reference's formula: it leaves out norms, the MoE's shared-expert
-        width, the hybrid's LoRA and the xlstm's gates, so it is not the
-        size of ``init_model``'s tree."""
+        reference's formula: it leaves out norms, the hybrid's LoRA and the
+        xlstm's gates, so it is not the size of ``init_model``'s tree. An
+        MoE config's leading dense layers count as dense layers of width
+        ``dense_d_ff``."""
         D, H, KV, hd, F, V, L = (self.d_model, self.n_heads, self.n_kv,
                                  self.hd, self.d_ff, self.vocab, self.n_layers)
         attn = D * H * hd + 2 * D * KV * hd + H * hd * D
-        mlp = 3 * D * F if self.act == "swiglu" else 2 * D * F
+        width = 3 if self.act == "swiglu" else 2
+        mlp = width * D * F
         if self.family == "moe":
             mlp = (self.n_experts + self.n_shared_experts) * mlp + D * self.n_experts
         if self.family == "ssm":
@@ -154,6 +169,8 @@ class ArchConfig:
         else:
             per_layer = attn + mlp
         total = L * per_layer + V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "moe" and self.first_k_dense:
+            total += self.first_k_dense * (width * D * self.dense_d_ff - mlp)
         if self.is_encdec:
             total += self.n_enc_layers * (attn + mlp)
         if self.attn_every:
@@ -161,10 +178,10 @@ class ArchConfig:
         return int(total)
 
     def active_param_count(self) -> int:
-        """Active (per-token) params: MoE counts topk + shared experts."""
+        """Active (per-token) params: MoE layers count topk + shared experts."""
         if self.family != "moe":
             return self.param_count()
-        D, F, L = self.d_model, self.d_ff, self.n_layers
+        D, F = self.d_model, self.d_ff
         mlp_all = (self.n_experts + self.n_shared_experts) * 3 * D * F
         mlp_act = (self.topk + self.n_shared_experts) * 3 * D * F
-        return int(self.param_count() - L * (mlp_all - mlp_act))
+        return int(self.param_count() - self.n_moe_layers * (mlp_all - mlp_act))

@@ -8,7 +8,10 @@ package's tree and shapes: ``embed`` (V_pad, D), ``final_ln``, ``lm_head``
 
   * dense, moe and vlm: ``layers`` whose leaves carry a leading
     stacked-layer axis (L, ...); a layer holds ``ln1``, ``attn``, ``ln2``
-    and ``mlp`` (dense, vlm) or ``moe`` (models/moe.py);
+    and ``mlp`` (dense, vlm) or ``moe`` (models/moe.py). An MoE config's
+    ``first_k_dense`` leading layers (attention and an MLP of width
+    ``dense_d_ff``) are stacked apart under ``dense_layers`` (k, ...), and
+    ``layers`` holds the L - k MoE layers (:func:`layer_stacks`);
   * encdec (seamless): ``encoder`` (L_enc, ...) layers of ``ln1``,
     ``attn``, ``ln2``, ``mlp``; ``decoder`` (L, ...) layers of ``ln1``,
     ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``; and
@@ -22,12 +25,14 @@ package's tree and shapes: ``embed`` (V_pad, D), ``final_ln``, ``lm_head``
     ``mlstm``, ``ln_s``, ``slstm`` (models/xlstm.py)}.
 
 Layers run as a Python loop over the stacked axis (the JAX package scans
-it).
+it); :func:`decoder_layers` is the one walk over the dense families'
+stacks, and :func:`run_layers` the one layer body of every serving
+forward.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -52,17 +57,21 @@ def check_family(cfg: ArchConfig) -> None:
         raise ValueError(f"unknown family {cfg.family!r} (expected one of {FAMILIES})")
 
 
-def _init_layer(cfg: ArchConfig, gen: torch.Generator, device) -> Dict:
+def _init_layer(cfg: ArchConfig, gen: torch.Generator, device,
+                dense: bool = False) -> Dict:
     """One layer's params, drawn in order: attention (wq, wk, wv, wo), then
-    the MLP (wi, wg, wo) or the MoE block (router, wi, wg, wo, shared)."""
+    the MLP (wi, wg, wo) or the MoE block (router, wi, wg, wo, shared). An
+    MoE config's leading ``dense`` layer takes the MLP of width
+    ``dense_d_ff``."""
     D = cfg.d_model
     p = {"ln1": L.init_norm(cfg, D, device=device),
          "attn": A.init_attn(gen, cfg, D, device=device),
          "ln2": L.init_norm(cfg, D, device=device)}
-    if cfg.family == "moe":
+    if cfg.family == "moe" and not dense:
         p["moe"] = MOE.init_moe(gen, cfg, D, device=device)
     else:
-        p["mlp"] = L.init_mlp(gen, cfg, D, cfg.d_ff, device=device)
+        p["mlp"] = L.init_mlp(gen, cfg, D, cfg.dense_d_ff if dense else cfg.d_ff,
+                              device=device)
     return p
 
 
@@ -183,8 +192,8 @@ def _init_body(cfg: ArchConfig, gen: torch.Generator, device,
     leaves; ``prep(path, tree)`` maps each drawn piece (identity, or the
     streamed build's quantization under its full path) before it is
     stacked."""
-    def stack(path, n, draw):
-        return _stream(n, lambda: draw(cfg, gen, device), lambda t: prep(path, t))
+    def stack(path, n, draw, **kw):
+        return _stream(n, lambda: draw(cfg, gen, device, **kw), lambda t: prep(path, t))
     if cfg.family == "hybrid":
         return {"hybrid": _init_hybrid(cfg, gen, device,
                                        lambda part, t: prep(("hybrid", part), t))}
@@ -195,7 +204,8 @@ def _init_body(cfg: ArchConfig, gen: torch.Generator, device,
         return {"encoder": stack(("encoder",), cfg.n_enc_layers, _init_enc_layer),
                 "decoder": stack(("decoder",), cfg.n_layers, _init_dec_layer),
                 "enc_final_ln": L.init_norm(cfg, cfg.d_model, device=device)}
-    return {"layers": stack(("layers",), cfg.n_layers, _init_layer)}
+    return {key: stack((key,), n, _init_layer, dense=key == "dense_layers")
+            for key, n in layer_stacks(cfg)}
 
 
 def init_model(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
@@ -283,12 +293,14 @@ def param_specs(cfg: ArchConfig) -> Dict:
     if not cfg.tie_embeddings:
         specs["lm_head"] = (None, "model")
     if cfg.family in DENSE_FAMILIES:
-        layer = {"ln1": _norm_specs(cfg), "attn": A.attn_specs(cfg), "ln2": _norm_specs(cfg)}
-        if cfg.family == "moe":
-            layer["moe"] = MOE.moe_specs(cfg)
-        else:
-            layer["mlp"] = L.mlp_specs(cfg)
-        specs["layers"] = _prepend(layer)
+        for key, _ in layer_stacks(cfg):
+            layer = {"ln1": _norm_specs(cfg), "attn": A.attn_specs(cfg),
+                     "ln2": _norm_specs(cfg)}
+            if cfg.family == "moe" and key == "layers":
+                layer["moe"] = MOE.moe_specs(cfg)
+            else:
+                layer["mlp"] = L.mlp_specs(cfg)
+            specs[key] = _prepend(layer)
     elif cfg.family == "encdec":
         enc = {"ln1": _norm_specs(cfg), "attn": A.attn_specs(cfg),
                "ln2": _norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
@@ -312,6 +324,22 @@ def param_specs(cfg: ArchConfig) -> Dict:
                 "ln_s": _norm_specs(cfg), "slstm": XL.slstm_specs(cfg)}
         specs["xlstm"] = {"pairs": _prepend(pair)}
     return specs
+
+
+def layer_stacks(cfg: ArchConfig) -> Tuple[Tuple[str, int], ...]:
+    """The dense families' stacked decoder layers in order, as (params key,
+    layers): an MoE config's ``first_k_dense`` leading dense layers under
+    ``dense_layers``, then the rest under ``layers``."""
+    k = cfg.first_k_dense if cfg.family == "moe" else 0
+    return tuple((key, n) for key, n in (("dense_layers", k), ("layers", cfg.n_layers - k))
+                 if n)
+
+
+def decoder_layers(params: Dict, cfg: ArchConfig) -> Iterator[Dict]:
+    """Each decoder layer's params in order over :func:`layer_stacks`, as
+    views of the stacks (:func:`_unstack`)."""
+    for key, n in layer_stacks(cfg):
+        yield from _unstack(params[key], n)
 
 
 def layer_params(layers: Dict, i) -> Dict:
@@ -341,12 +369,34 @@ def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def ffn(lp: Dict, h: torch.Tensor, cfg: ArchConfig, *,
         active: Optional[torch.Tensor] = None, row_isolated: bool = False) -> torch.Tensor:
-    """A layer's feed-forward block on normed ``h``: the MLP, or the MoE
-    block in the capacity mode its caller names (models/moe.py; the aux
-    loss is dropped, serving has no use for it)."""
-    if cfg.family == "moe":
-        return MOE.apply_moe(lp["moe"], h, cfg, active=active, row_isolated=row_isolated)[0]
+    """A layer's feed-forward block on normed ``h``, whichever the layer's
+    params hold: the MLP, or the MoE block in the capacity mode its caller
+    names (models/moe.py; the aux loss is dropped, serving has no use for
+    it)."""
+    if "moe" in lp:
+        with tracing.span("fwd.moe"):
+            return MOE.apply_moe(lp["moe"], h, cfg, active=active,
+                                 row_isolated=row_isolated)[0]
     return L.apply_mlp(lp["mlp"], h, cfg)
+
+
+def run_layers(params: Dict, cfg: ArchConfig, x: torch.Tensor, attend: Callable, *,
+               active: Optional[torch.Tensor] = None,
+               row_isolated: bool = False) -> torch.Tensor:
+    """The residual stream x (B, T, D) through every decoder layer
+    (:func:`decoder_layers`): ``attend(attn_params, h, i)`` runs layer i's
+    attention on its normed input, then the layer's :func:`ffn` in the MoE
+    capacity mode the caller names, each added to x. The layer walk of
+    every serving forward (:func:`forward`, models/serve.py's chunked and
+    suffix prefill, decode and verify). Returns the final stream."""
+    for i, lp in enumerate(decoder_layers(params, cfg)):
+        with tracing.span("fwd.layer", i=i):
+            with tracing.span("fwd.attn"):
+                x = x + attend(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), i)
+            with tracing.span("fwd.ffn"):
+                x = x + ffn(lp, L.apply_norm(lp["ln2"], x, cfg), cfg, active=active,
+                            row_isolated=row_isolated)
+    return x
 
 
 def embed_tokens(params: Dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -404,20 +454,15 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor], *,
     int8_kv = cfg.kv_cache_dtype == "int8"
     names = kv_names(cfg)
     entries = []
-    for i in range(cfg.n_layers):
-        with tracing.span("fwd.layer", i=i):
-            lp = layer_params(params["layers"], i)
-            with tracing.span("fwd.attn"):
-                h = L.apply_norm(lp["ln1"], x, cfg)
-                o, *kv = A.prefill_attention_with_kv(lp["attn"], h, cfg, positions=positions,
-                                                     positions3=positions3, int8_kv=int8_kv,
-                                                     decode_rows=decode_rows)
-                x = x + o
-            with tracing.span("fwd.ffn"):
-                h = L.apply_norm(lp["ln2"], x, cfg)
-                x = x + ffn(lp, h, cfg, row_isolated=not return_hidden)
+
+    def attend(ap, h, i):
+        o, *kv = A.prefill_attention_with_kv(ap, h, cfg, positions=positions,
+                                             positions3=positions3, int8_kv=int8_kv,
+                                             decode_rows=decode_rows)
         if not return_hidden:
             entries.append(kv)
+        return o
+    x = run_layers(params, cfg, x, attend, row_isolated=not return_hidden)
     with tracing.span("fwd.head"):
         if return_hidden:
             hidden = L.apply_norm(params["final_ln"], x, cfg)
@@ -587,7 +632,7 @@ def _train_dense_layer(lp: Dict, x: torch.Tensor, cfg: ArchConfig,
     x = x + A.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
                         positions=positions, positions3=positions3)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    if cfg.family == "moe":
+    if "moe" in lp:
         y, aux = MOE.apply_moe(lp["moe"], h, cfg)
     else:
         y, aux = L.apply_mlp(lp["mlp"], h, cfg), x.new_zeros((), dtype=torch.float32)
@@ -686,7 +731,7 @@ def train_forward(params: Dict, cfg: ArchConfig, batch: Dict) -> Tuple[torch.Ten
     aux = x.new_zeros((), dtype=torch.float32)
     if cfg.family in DENSE_FAMILIES:
         positions3 = batch.get("positions3")
-        for lp in _unstack(params["layers"], cfg.n_layers):
+        for lp in decoder_layers(params, cfg):
             x, a = _remat(_train_dense_layer, cfg, lp, x, cfg, positions, positions3)
             aux = aux + a
     elif cfg.family == "hybrid":

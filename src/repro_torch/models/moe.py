@@ -7,7 +7,12 @@ Here the dispatch decision is the reference's, computed exactly: the
 router's f32 scores, top-k (the lower expert index first among equal
 scores, as ``jax.lax.top_k``), a softmax over the selected gates in f32,
 each (token, k) slot's queue position in its expert as a cumsum over the
-flat (token, k) order, and the keep mask ``pos < capacity``. The expert
+flat (token, k) order, and the keep mask ``pos < capacity``. A config
+with ``norm_topk_prob`` false (deepseek-moe-16b as published) gates by the
+softmax over all E experts in f32 at the selected ids instead, not
+renormalised; the selection still ranks the f32 scores, which orders the
+experts as their probabilities do but where two probabilities round
+equal. The expert
 MLPs then run on the (token, k) pairs, grouped by expert, and a dropped
 pair's output is discarded: a kept slot's value in the reference depends
 only on its token, so the function is the same and the mostly empty
@@ -36,6 +41,15 @@ path: dequantized per layer and forward (``q * scale`` in f32, then the
 compute dtype, as the reference dequantizes them) and contracted in the
 compute dtype; the shared experts go through ``layers.apply_mlp`` and
 therefore through qgemm.
+
+Spans (``repro_torch.tracing``, recorded only while it is on), inside the
+serving forwards' ``fwd.moe`` (models/model.py ``ffn``): ``moe.route``
+(router, top-k, gates, dispatch), ``moe.experts`` (dequantization and the
+expert passes; attributes ``pairs``, the (token, k) pairs, ``passes``, the
+batched passes, and ``host_reads``, the values the block read back to the
+host: the sizing of ``torch.bincount`` and, above EXPERT_ROWS tokens, the
+longest queue; on a card each one waits for the device) and
+``moe.shared``.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tensorizer as tz
 from repro_torch.models import layers as L
@@ -101,17 +116,23 @@ def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def dispatch(scores: torch.Tensor, topk: int, capacity: int,
-             token_valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+             token_valid: Optional[torch.Tensor] = None,
+             norm_topk_prob: bool = True) -> Tuple[torch.Tensor, ...]:
     """The reference's dispatch decision for groups of tokens binned
     separately: ``scores`` (G, N, E) f32 -> ``(ids, gate, keep)``, each
-    (G, N, topk): the selected experts, their softmax-normalized gates
-    (f32) and whether the slot fits its expert's ``capacity``. A slot's
+    (G, N, topk): the selected experts, their gates (f32) and whether the
+    slot fits its expert's ``capacity``. The gates are the softmax over the
+    k selected scores with ``norm_topk_prob`` (renormalised to sum to 1),
+    else the softmax over all E scores at the selected ids. A slot's
     queue position is the cumsum of its expert's slots over the group's
     flat (token, k) order; ``token_valid`` (G, N) bool takes tokens out of
     the cumsum altogether (they are never kept)."""
     G, N, E = scores.shape
     gate, ids = top_k(scores, topk)
-    gate = torch.softmax(gate.to(torch.float32), dim=-1)
+    if norm_topk_prob:
+        gate = torch.softmax(gate.to(torch.float32), dim=-1)
+    else:
+        gate = torch.softmax(scores.to(torch.float32), dim=-1).gather(-1, ids)
     flat = ids.reshape(G, N * topk)
     if token_valid is None:
         valid = torch.ones_like(flat, dtype=torch.bool)
@@ -142,32 +163,41 @@ def expert_outputs(p: Dict, x: torch.Tensor, experts: torch.Tensor, n_tokens: in
     elsewhere. ``n_tokens`` bounds any expert's queue (a token picks an
     expert at most once), so the passes need no host read at or below
     EXPERT_ROWS tokens. On meta tensors (the dry run) the queues are a
-    balanced router's, ``ceil(P / E)`` each. Returns (P, D)."""
+    balanced router's, ``ceil(P / E)`` each. Returns (P, D), under the
+    ``moe.experts`` span (module doc)."""
     E, R = cfg.n_experts, EXPERT_ROWS
     P, D = x.shape
-    if x.is_meta:
-        # the dry run has no routing to read: a balanced router's queues
-        counts = experts.new_zeros((E,))
-        longest = -(-P // E)
-    else:
-        counts = torch.bincount(experts, minlength=E)
-    order = torch.argsort(experts, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(P, device=x.device) - (torch.cumsum(counts, 0) - counts)[
-        experts[order]]
-    if n_tokens <= R:
-        n_pass = 1
-    else:
-        n_pass = -(-(longest if x.is_meta else int(counts.max())) // R)
-    step, slot = rank // R, rank % R
-    xb = x.new_zeros((n_pass, E, R, D))
-    xb[step, experts, slot] = x
-    wi, wg, wo = (_dequant(p[n], x.dtype) for n in ("wi", "wg", "wo"))
-    yb = torch.empty_like(xb)
-    for i in range(n_pass):
-        h = L.silu(torch.bmm(xb[i], wi)) * torch.bmm(xb[i], wg)
-        yb[i] = torch.bmm(h, wo)
-    return yb[step, experts, slot]
+    with tracing.span("moe.experts") as sp:
+        reads = 0
+        if x.is_meta:
+            # the dry run has no routing to read: a balanced router's queues
+            counts = experts.new_zeros((E,))
+            longest = -(-P // E)
+        else:
+            # sizes its output from the largest id, read on the host
+            counts = torch.bincount(experts, minlength=E)
+            reads += 1
+        order = torch.argsort(experts, stable=True)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(P, device=x.device) - (torch.cumsum(counts, 0) - counts)[
+            experts[order]]
+        if n_tokens <= R:
+            n_pass = 1
+        else:
+            if not x.is_meta:
+                longest = int(counts.max())
+                reads += 1
+            n_pass = -(-longest // R)
+        step, slot = rank // R, rank % R
+        xb = x.new_zeros((n_pass, E, R, D))
+        xb[step, experts, slot] = x
+        wi, wg, wo = (_dequant(p[n], x.dtype) for n in ("wi", "wg", "wo"))
+        yb = torch.empty_like(xb)
+        for i in range(n_pass):
+            h = L.silu(torch.bmm(xb[i], wi)) * torch.bmm(xb[i], wg)
+            yb[i] = torch.bmm(h, wo)
+        sp.note(pairs=P, passes=n_pass, host_reads=reads)
+        return yb[step, experts, slot]
 
 
 def combine(out: torch.Tensor, gate: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -197,23 +227,27 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     against capacity S. Neither: the shared, dropping capacity. Each
     token's k contributions ``expert_out * gate`` (rounded to the compute
     dtype) are added to zero in slot order, in the compute dtype: the
-    order of the reference's scatter-add. Dropped slots add nothing."""
+    order of the reference's scatter-add. Dropped slots add nothing. The
+    gates are ``dispatch``'s under ``cfg.norm_topk_prob``."""
     B, S, D = x.shape
     E, topk = cfg.n_experts, cfg.topk
     T = B * S
     xf = x.reshape(T, D)
-    scores = router_scores(p["router"], xf)
-    if row_isolated:
-        ids, gate, keep = dispatch(scores.reshape(B, S, E), topk, max(topk, S))
-    else:
-        valid = None
-        if active is not None:
-            valid = active.to(torch.bool)[:, None].expand(B, S).reshape(1, T)
-            capacity = max(topk, T)
+    with tracing.span("moe.route"):
+        scores = router_scores(p["router"], xf)
+        if row_isolated:
+            ids, gate, keep = dispatch(scores.reshape(B, S, E), topk, max(topk, S),
+                                       norm_topk_prob=cfg.norm_topk_prob)
         else:
-            capacity = max(topk, math.ceil(T * topk / E * cfg.capacity_factor))
-        ids, gate, keep = dispatch(scores[None], topk, capacity, valid)
-    ids, gate, keep = (t.reshape(T, topk) for t in (ids, gate, keep))
+            valid = None
+            if active is not None:
+                valid = active.to(torch.bool)[:, None].expand(B, S).reshape(1, T)
+                capacity = max(topk, T)
+            else:
+                capacity = max(topk, math.ceil(T * topk / E * cfg.capacity_factor))
+            ids, gate, keep = dispatch(scores[None], topk, capacity, valid,
+                                       norm_topk_prob=cfg.norm_topk_prob)
+        ids, gate, keep = (t.reshape(T, topk) for t in (ids, gate, keep))
     out = expert_outputs(p, xf.repeat_interleave(topk, dim=0), ids.reshape(-1), T, cfg)
     y = combine(out.reshape(T, topk, D), gate, keep)
     probs = torch.softmax(scores, dim=-1)
@@ -221,5 +255,6 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     aux = E * torch.sum(f * probs.mean(dim=0))
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
-        y = y + L.apply_mlp(p["shared"], x, cfg)
+        with tracing.span("moe.shared"):
+            y = y + L.apply_mlp(p["shared"], x, cfg)
     return y, aux

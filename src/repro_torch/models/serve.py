@@ -224,20 +224,14 @@ def _chunked_prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
         positions = (lo + torch.arange(w, dtype=torch.int32, device=dev)).expand(B, w)
         with tracing.span("fwd.embed"):
             x = M.embed_tokens(params, cfg, tokens[:, lo:lo + w])
-        for i in range(cfg.n_layers):
-            with tracing.span("fwd.layer", i=i):
-                lp = M.layer_params(params["layers"], i)
-                with tracing.span("fwd.attn"):
-                    h = L.apply_norm(lp["ln1"], x, cfg)
-                    accs = {n: kv[n][i] for n in names}
-                    x = x + A.chunked_prefill_attention_with_kv(
-                        lp["attn"], h, cfg, positions=positions, chunk_start=lo,
-                        k_acc=accs["k"], v_acc=accs["v"], k_sc_acc=accs.get("k_scale"),
-                        v_sc_acc=accs.get("v_scale"), int8_kv=int8_kv,
-                        decode_rows=decode_rows)
-                with tracing.span("fwd.ffn"):
-                    h = L.apply_norm(lp["ln2"], x, cfg)
-                    x = x + M.ffn(lp, h, cfg, row_isolated=True)
+
+        def attend(ap, h, i, positions=positions, lo=lo):
+            accs = {n: kv[n][i] for n in names}
+            return A.chunked_prefill_attention_with_kv(
+                ap, h, cfg, positions=positions, chunk_start=lo, k_acc=accs["k"],
+                v_acc=accs["v"], k_sc_acc=accs.get("k_scale"), v_sc_acc=accs.get("v_scale"),
+                int8_kv=int8_kv, decode_rows=decode_rows)
+        x = M.run_layers(params, cfg, x, attend, row_isolated=True)
         # carry each row's last-prompt-position hidden state
         rel = last_index.long() - lo
         in_piece = (rel >= 0) & (rel < w)
@@ -264,16 +258,11 @@ def _decode_layers(params: Dict, cfg: ArchConfig, cache: Dict, tokens: torch.Ten
     int8_kv = "k_scale" in cache
     with tracing.span("fwd.embed"):
         x = M.embed_tokens(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        with tracing.span("fwd.layer", i=i):
-            lp = M.layer_params(params["layers"], i)
-            with tracing.span("fwd.attn"):
-                h = L.apply_norm(lp["ln1"], x, cfg)
-                scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8_kv else None
-                x = x + attend(lp["attn"], h, i, scales)
-            with tracing.span("fwd.ffn"):
-                h = L.apply_norm(lp["ln2"], x, cfg)
-                x = x + M.ffn(lp, h, cfg, active=active, row_isolated=row_isolated)
+
+    def attend_layer(ap, h, i):
+        scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8_kv else None
+        return attend(ap, h, i, scales)
+    x = M.run_layers(params, cfg, x, attend_layer, active=active, row_isolated=row_isolated)
     with tracing.span("fwd.head"):
         return M._head(params, cfg, L.apply_norm(params["final_ln"], x, cfg))
 

@@ -27,6 +27,12 @@ Spans, by thread (children indented)::
                                 replayed as a CUDA graph, fwd.graph
                                 (captured_launches, capture=0/1)
                      opq.sync
+                   under an MoE layer's fwd.ffn (models/moe.py):
+                     fwd.moe: moe.route, moe.experts (pairs, passes,
+                              host_reads), moe.shared
+
+A span's ``note(**attrs)`` adds attributes while it is open (counters that
+its body works out); the no-op span ignores them.
 """
 
 from __future__ import annotations
@@ -110,6 +116,9 @@ class _Noop:
     def __exit__(self, *exc) -> bool:
         return False
 
+    def note(self, **attrs) -> None:
+        pass
+
 
 _NOOP = _Noop()
 
@@ -135,6 +144,10 @@ class _Open:
         _spans.append(Span(self.name, self.start, end, self.span_id, self.parent or None,
                            threading.get_ident(), self.attrs))
         return False
+
+    def note(self, **attrs) -> None:
+        """Add attributes known only once the body has run (counters)."""
+        self.attrs.update(attrs)
 
 
 def span(name: str, parent: Optional[int] = None, **attrs):

@@ -13,6 +13,7 @@ counts and, on the paged routes, the block census after every engine step
 are IDENTICAL.
 """
 
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -26,6 +27,21 @@ MIN_COMPARED = {"float32": 1 + 8, "bfloat16": 0}
 DTYPES = list(LOGIT_TOL)
 KV_DTYPES = ["bfloat16", "int8"]
 BASE_ECFG = dict(max_slots=2, max_seq_len=48, block_size=8)
+# The port's ArchConfig fields that the JAX package's lacks, at the values
+# of the JAX package's MoE block: no leading dense layer, the k gates
+# renormalised. deepseek-moe-16b states the published block instead, so a
+# test that holds it to the JAX package pins it to these.
+JAX_BLOCK = {"first_k_dense": 0, "dense_d_ff": None, "norm_topk_prob": True}
+
+
+def jax_block(cfg):
+    """Port config ``cfg`` with the JAX package's MoE block (JAX_BLOCK)."""
+    return cfg.replace(**JAX_BLOCK)
+
+
+def jax_fields(cfg) -> dict:
+    """The fields of port config ``cfg`` that the JAX package's has."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if k not in JAX_BLOCK}
 
 
 def traffic(prompt_lens, gen, seed=7, preamble=0):

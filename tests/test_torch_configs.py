@@ -66,12 +66,15 @@ from repro_torch.models import serve as TSV
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.testing.params import params_from_numpy
 
+import _torch_parity as P
+
 NEW_ARCHS = ["moonshot-v1-16b-a3b", "deepseek-moe-16b", "qwen3-14b", "starcoder2-15b",
              "granite-20b"]
 UNPORTED = ["xlstm-125m", "seamless-m4t-medium", "qwen2-vl-2b"]
 DTYPES = ["float32", "bfloat16"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 TOKENS = (3, 16)
+PUBLISHED_BLOCK = {"first_k_dense": 1, "dense_d_ff": 10944, "norm_topk_prob": False}
 
 
 def _numpy_tree(tree):
@@ -163,10 +166,14 @@ def _within_one_ulp(got, ref):
 @pytest.mark.parametrize("arch", NEW_ARCHS + ["tinyllama-1.1b", "zamba2-7b"] + UNPORTED)
 def test_config_fields_equal_the_references(arch):
     ref = dataclasses.asdict(get_config(arch))
-    got = dataclasses.asdict(tget_config(arch))
+    got = P.jax_fields(tget_config(arch))
     assert got == {k: ref[k] for k in got}
     assert set(ref) - set(got) == set()
     assert arch.replace("-", "_").replace(".", "_") in ARCH_IDS
+    # the port's own fields: deepseek-moe-16b's published block (a leading
+    # dense layer, unrenormalised gates), the JAX package's block elsewhere
+    own = {k: getattr(tget_config(arch), k) for k in P.JAX_BLOCK}
+    assert own == (PUBLISHED_BLOCK if arch == "deepseek-moe-16b" else P.JAX_BLOCK)
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
@@ -176,7 +183,7 @@ def test_unported_configs_name_item_11(arch, capsys):
     the embeds-input seamless-m4t-medium and qwen2-vl-2b with the
     reference's messages."""
     cfg = tget_config(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(get_config(arch))
+    assert P.jax_fields(cfg) == dataclasses.asdict(get_config(arch))
     argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "1",
             "--prompt-len", "4", "--gen", "2", "--slots", "1"]
     if cfg.input_mode == "tokens":
@@ -234,7 +241,7 @@ def test_gelu_mlp_matches_jax(reference):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_forward_and_prefill_match_jax(reference, arch, dtype):
-    cfg = tget_config(arch).smoke().replace(quantize="serve", dtype=dtype)
+    cfg = P.jax_block(tget_config(arch).smoke()).replace(quantize="serve", dtype=dtype)
     params = params_from_numpy(reference[arch, "params"], device="cpu")
     ref = reference[arch, dtype]
     tokens = torch.from_numpy(reference["tokens"])
@@ -285,7 +292,7 @@ def test_streamed_build_is_bitwise_init_then_quantize(arch):
 
 
 def test_params_from_numpy_carries_a_moe_tree(reference):
-    cfg = tget_config("deepseek-moe-16b").smoke()
+    cfg = P.jax_block(tget_config("deepseek-moe-16b").smoke())
     p = params_from_numpy(reference["deepseek-moe-16b", "params"], device="cpu")
     moe = p["layers"]["moe"]
     L, E, D, F = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff

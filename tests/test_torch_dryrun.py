@@ -63,6 +63,8 @@ from repro_torch.models.attention import ATTEND_ROWS
 from repro_torch.models.moe import EXPERT_ROWS, ROUTER_ROWS
 from repro_torch.models.xlstm import FIXED_ROWS
 
+import _torch_parity as P
+
 REPO = Path(__file__).resolve().parent.parent
 META = torch.device("meta")
 
@@ -80,7 +82,7 @@ def test_shapes_match_the_reference():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 def test_param_counts_are_the_references(arch, smoke):
-    j, t = jget(arch), tget(arch)
+    j, t = jget(arch), P.jax_block(tget(arch))
     if smoke:
         j, t = j.smoke(), t.smoke()
     assert t.is_encdec == j.is_encdec
@@ -105,9 +107,9 @@ def _reference_reduced_depths():
 def test_reduced_depths_are_the_references():
     ref = _reference_reduced_depths()
     for arch in ARCH_IDS:
-        hi, lo, uh, ul, uf = TD.reduced_depths(tget(arch))
+        hi, lo, uh, ul, uf = TD.reduced_depths(P.jax_block(tget(arch)))
         rhi, rlo, ruh, rul, ruf = ref(jget(arch))
-        assert (dataclasses.asdict(hi), dataclasses.asdict(lo)) == (
+        assert (P.jax_fields(hi), P.jax_fields(lo)) == (
             dataclasses.asdict(rhi), dataclasses.asdict(rlo)), arch
         assert (uh, ul, uf) == (ruh, rul, ruf), arch
 
@@ -337,7 +339,7 @@ def _family_cells(arch):
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_flops_equal_or_derived(auto_mesh, arch):
-    jc, tc = jget(arch).smoke(), tget(arch).smoke()
+    jc, tc = jget(arch).smoke(), P.jax_block(tget(arch).smoke())
     for kind, S, B in _family_cells(arch):
         ref = ref_flops(jc, JShape("x", S, B, kind))
         got = port_flops(tc, ShapeCfg("x", S, B, kind))

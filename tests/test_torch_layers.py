@@ -31,6 +31,8 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.models import layers as TL
 from repro_torch.testing.params import params_from_numpy
 
+import _torch_parity as P
+
 CFG = get_config("tinyllama-1.1b").smoke()
 TCFG = tget_config("tinyllama-1.1b").smoke()
 BF16_ULP = 2.0 ** -7
@@ -58,14 +60,14 @@ def _np(x):
 
 def test_configs_match_reference():
     import dataclasses
-    assert dataclasses.asdict(TCFG) == dataclasses.asdict(CFG)
-    assert (dataclasses.asdict(tget_config("tinyllama-1.1b"))
+    assert P.jax_fields(TCFG) == dataclasses.asdict(CFG)
+    assert (P.jax_fields(tget_config("tinyllama-1.1b"))
             == dataclasses.asdict(get_config("tinyllama-1.1b")))
-    assert (dataclasses.asdict(tget_config("qwen3-14b"))
+    assert (P.jax_fields(tget_config("qwen3-14b"))
             == dataclasses.asdict(get_config("qwen3-14b")))
     # the last three families are ported too; an unknown arch is refused
     for arch in ("xlstm-125m", "seamless-m4t-medium", "qwen2-vl-2b"):
-        assert dataclasses.asdict(tget_config(arch)) == dataclasses.asdict(get_config(arch))
+        assert P.jax_fields(tget_config(arch)) == dataclasses.asdict(get_config(arch))
     with pytest.raises(ValueError, match="unknown arch"):
         tget_config("gpt-5")
 

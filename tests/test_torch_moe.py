@@ -52,6 +52,8 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models import init_model as tinit
 from repro_torch.testing.params import params_from_numpy
 
+import _torch_parity as P
+
 ARCHS = ["moonshot-v1-16b-a3b", "deepseek-moe-16b"]
 # mode -> (apply_moe knobs, config fields)
 MODES = {
@@ -130,7 +132,7 @@ def reference(tmp_path_factory):
 
 def _port(reference, arch, dtype, mode):
     kw, fields = MODES[mode]
-    cfg = tget_config(arch).smoke().replace(dtype=dtype, **fields)
+    cfg = P.jax_block(tget_config(arch).smoke()).replace(dtype=dtype, **fields)
     p = params_from_numpy(reference[arch, dtype, "params"], device="cpu")
     if "active" in kw:
         kw = dict(kw, active=torch.tensor(kw["active"]))
@@ -168,7 +170,7 @@ def test_dispatch_decision_is_the_references(reference, arch):
     """Experts, keep mask and gates of the dropping dispatch, from the same
     router scores, against the reference's ``_dispatch_local``."""
     ref = reference[arch, "dispatch"]
-    cfg = tget_config(arch).smoke()
+    cfg = P.jax_block(tget_config(arch).smoke())
     T = ref["scores"].shape[0]
     ids, gate, keep = TMOE.dispatch(torch.from_numpy(ref["scores"])[None], cfg.topk,
                                     ref["capacity"])

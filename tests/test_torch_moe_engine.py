@@ -218,7 +218,7 @@ def embed_reference(tmp_path_factory):
 
 
 def test_moe_embed_matches_reference(embed_reference):
-    cfg = get_config("deepseek-moe-16b").smoke().replace(dtype="float32")
+    cfg = P.jax_block(get_config("deepseek-moe-16b").smoke()).replace(dtype="float32")
     params = params_from_numpy(embed_reference["params"], device="cpu")
     eng = Engine(cfg, params, EngineConfig(**P.BASE_ECFG), device="cpu")
     for prompt, ref in zip(EMBED_PROMPTS, embed_reference["embed"]):

@@ -35,6 +35,8 @@ from repro_torch.launch import train as TTRAIN
 from repro_torch.models import steps as TST
 from repro_torch.serving.transport import build_model_spec
 
+import _torch_parity as P
+
 MESHES = [((1,), ("data",)), ((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model"))]
 
@@ -145,7 +147,8 @@ def test_dry_run_specs_are_the_references(restore_reference_mesh, arch):
         jshd.set_mesh(AbstractMesh(sizes, names))
         with tshd.use_mesh(tshd.Mesh(sizes, names)):
             for quantize in ("off", "serve"):
-                jc, tc = jget(arch).replace(quantize=quantize), tget(arch).replace(quantize=quantize)
+                jc = jget(arch).replace(quantize=quantize)
+                tc = P.jax_block(tget(arch)).replace(quantize=quantize)
                 ref_p = JST.param_sds(jc)
                 params, pspecs = TST.param_sds(tc)
                 got = _port_leaves(params, pspecs)

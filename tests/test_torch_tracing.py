@@ -127,6 +127,60 @@ def test_forward_layers_nest_under_the_lane_and_the_engine(params, route):
     assert not any(n.startswith("opq:") for n in names)
 
 
+MOE_CFG = get_config("deepseek-moe-16b").smoke().replace(quantize="serve")
+
+
+def test_moe_block_spans_nest_and_count():
+    """deepseek-moe-16b's reduced published block (a dense layer, then an
+    MoE layer) on the kernel route: under an MoE layer's ``fwd.ffn`` one
+    ``fwd.moe`` holding ``moe.route``, ``moe.experts`` and ``moe.shared``;
+    none under the dense layer's. ``moe.experts`` counts the (token, k)
+    pairs, the batched passes and the host reads: a decode step of two
+    slots has 2 x topk pairs in one pass and one read (``bincount``'s
+    sizing); an admission of two rows of 32 tokens, above EXPERT_ROWS, one
+    more (the longest queue)."""
+    from repro_torch.models.moe import EXPERT_ROWS
+    params = init_model_quantized(MOE_CFG, torch.Generator().manual_seed(0), quant_predicate)
+    eng = Engine(MOE_CFG, params, EngineConfig(**BASE, **ROUTES["paged_kernel"]), device="cpu")
+    rng = np.random.default_rng(4)
+    tracing.enable()
+    try:
+        for n in (30, 20):
+            eng.submit(rng.integers(0, MOE_CFG.vocab, (n,), dtype=np.int32), GEN)
+        eng.run_until_complete()
+    finally:
+        tracing.disable()
+        eng.close()
+    spans = tracing.take()
+    ids = _by_id(spans)
+
+    def children(s, name=None):
+        return [c for c in spans if c.parent_id == s.span_id and name in (None, c.name)]
+    layers = [s for s in spans if s.name == "fwd.layer"]
+    assert {s.attrs["i"] for s in layers} == {0, 1}
+    for s in layers:
+        moe = children(children(s, "fwd.ffn")[0], "fwd.moe")
+        if s.attrs["i"] < MOE_CFG.first_k_dense:
+            assert moe == []
+        else:
+            assert len(moe) == 1
+            assert sorted(c.name for c in children(moe[0])) == ["moe.experts", "moe.route",
+                                                                "moe.shared"]
+    seen = set()
+    for s in spans:
+        if s.name != "moe.experts":
+            continue
+        flags = _ancestor(s, ids, "opq.run").attrs["flags"]
+        tokens = s.attrs["pairs"] // MOE_CFG.topk
+        if flags == "decode":
+            assert (tokens, s.attrs["passes"], s.attrs["host_reads"]) == (BASE["max_slots"], 1, 1)
+        else:
+            assert s.attrs["host_reads"] == (1 if tokens <= EXPERT_ROWS else 2)
+            assert s.attrs["passes"] >= 1
+        seen.add((flags.split("/")[0], s.attrs["host_reads"]))
+    assert {("decode", 1), ("prefill", 2)} <= seen
+
+
 def test_request_spans_tile_submit_to_finish(params):
     _, reqs, _, spans = _serve(params, "paged_kernel", on=True)
     for r in reqs:

@@ -38,6 +38,8 @@ import torch
 from repro.models import layers as JL
 from repro_torch.models import layers as L
 
+import _torch_parity as P
+
 F32 = {"logits": 1e-4, "loss": 1e-5, "leaf": 1e-4}
 BF16 = {"logits": 5e-2, "loss": 2e-2, "leaf": 5e-2}
 RULES = {"float32": F32, "bfloat16": BF16}
@@ -206,7 +208,8 @@ def parity_tests(arch, test_file):
                                        tmp_path_factory.mktemp("train") / "ref.pkl")
 
     def setup(reference, dtype):
-        cfg = get_config(arch).smoke().replace(dtype=dtype)
+        # the JAX package's MoE block (deepseek-moe-16b states the published one)
+        cfg = P.jax_block(get_config(arch).smoke()).replace(dtype=dtype)
         return cfg, params_from_numpy(reference[arch, "params"], device="cpu")
 
     @pytest.mark.parametrize("dtype", DTYPES)
