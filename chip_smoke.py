@@ -114,11 +114,19 @@ seconds since the previous line):
                 request alone on a one-slot engine, contiguous, bridge and
                 block-native plain bitwise in tokens and valid cache
                 entries, the kernel route held to plain at f32, launches
-                held to the forwards (qgemm 50 per forward), int8 KV,
-                speculative decode with the target as its own draft
-                (bitwise plain decode's, acceptance 1.0), Engine.embed, a
-                decode step's profile (the routed experts' device time
-                beside qgemm's), and the card against the CPU at 2 layers
+                held to the forwards (qgemm 50 per forward; the routed
+                experts' kernel pair 2 a MoE layer on every bf16 route),
+                int8 KV, speculative decode with the target as its own
+                draft (bitwise plain decode's, acceptance 1.0),
+                Engine.embed, a decode step's profile (the routed experts'
+                device time beside qgemm's, no bf16 library GEMM and no f32
+                dequantization under them), the kernel route against the
+                plain route, bit for bit, at the cell's shapes (63 tokens
+                x 6, a 1024-token chunk, one expert holding 1024 rows) with
+                its device times beside its bound and the former path's, a
+                row's bits alone, in a batch and at both tile sizes, no
+                host read on the kernel route, and the card against the
+                CPU at 2 layers
  20. dense_configs — qwen3-14b (qk_norm), starcoder2-15b (LayerNorm, GeLU)
                 and granite-20b (MQA) in turn at full width and a quarter
                 of their depth (10, 10 and 13 layers) on
@@ -210,7 +218,7 @@ seconds since the previous line):
                 qgemm at 16384^3 under a CUDA graph beside _int_mm's time
                 and its bound
 
-then the ``{"kernels": [...]}`` line (all five kernels, each with its
+then the ``{"kernels": [...]}`` line (all six kernels, each with its
 launches on each path: serve, stores, int8_kv, chunked, prefix_cache,
 sampling, speculative, fleet (its in-process runs), gptpu, ops, moe,
 dense_configs, hybrid, xlstm, vlm, encdec, train (0 each), dryrun and
@@ -2360,9 +2368,10 @@ def served_summary(run):
 def profile_arch(cfg, params, n=2):
     """A served decode step of ``cfg`` (``decode_stepper``): host wall ms,
     device busy ms, its top kernels, qgemm's and paged attention's device
-    ms, and the device ms under the MoE block's routed-expert products
-    (``moe.expert_outputs``: dequantizing the experts and the batched
-    products) and under its router and dispatch."""
+    ms; for MoE the device ms of the routed experts' kernel pair
+    (``moe_expert``) and of the library kernels under the MoE block's
+    ``moe.expert_outputs`` (its queues: none a bf16 GEMM or an f32
+    dequantization), its router and its dispatch."""
     from repro_torch.models import moe as MOE
     step = decode_stepper(cfg, params)
     for _ in range(2):
@@ -2379,25 +2388,135 @@ def profile_arch(cfg, params, n=2):
            "top_kernels_ms_per_step": top}
     if cfg.family == "moe":
         out.update({f"{f}_ms_per_step": range_device_ms(prof, n, f) for _, f in ranges})
+        # the profiler links the library's kernels to the range's host ops;
+        # the ctypes launches of the kernel pair it links to none, so they
+        # are read by name over the step
+        experts = range_kernels(prof, "expert_outputs")
+        out["expert_outputs_kernels_ms_per_step"] = {
+            k[:60]: v / n for k, v in sorted(experts.items(), key=lambda kv: -kv[1])}
+        out["moe_expert_ms_per_step"] = device_time(prof, n, 0, "moe_expert")[0]
+        check(out["moe_expert_ms_per_step"] > 0, f"{cfg.name}: no moe_expert kernel ran")
+        check(not any("nvjet_" in k or "MulFunctor<float>" in k for k in experts),
+              f"{cfg.name}: a library GEMM or an f32 dequantization under "
+              f"expert_outputs: {sorted(experts)}")
     return out
 
 
-def dequant_times(cfg, params):
-    """Device ms to dequantize one layer's routed ``wi`` (E, D, F) to bf16,
-    two ways: the model's one pass (``moe._dequant``: int8 times the f32
-    scale, stored as bf16) and an f32 copy scaled then cast; with the
-    bound of the one pass (int8 read, bf16 written)."""
+def range_kernels(prof, label):
+    """Device ms over the whole profile of each kernel, by name, launched
+    inside the profiler range ``label`` (``measure_steps``' ``ranges``):
+    the kernels the profiler linked to the range's host events."""
+    from torch.autograd import DeviceType
+    found = {}
+
+    def walk(e):
+        for k in e.kernels:
+            found[k.name] = found.get(k.name, 0.0) + k.duration / 1e3
+        for c in e.cpu_children:
+            walk(c)
+    for e in prof.events():
+        if e.name == label and e.device_type == DeviceType.CPU:
+            walk(e)
+    return found
+
+
+MOE_EXPERT_CASES = (("decode", 63, None), ("chunk", 1024, None), ("one_expert", 1024, 3))
+
+
+def moe_expert_cases(cfg, params):
+    """The routed experts' kernel pair (``kernels/moe_expert.py``) on the
+    card, with the first MoE layer's weights, at the cell's shapes
+    (MOE_EXPERT_CASES: 63 decode tokens, a 1024-token chunk, and 1024
+    tokens that all pick expert 3; top-k distinct experts a token, drawn at
+    random): ``moe.expert_outputs``' kernel route bit for bit its plain
+    route (``moe.plain_experts``, the former path: every expert
+    dequantized, the padded (E, 32, D) library products and their host
+    reads) on every value; each kernel's device ms in a CUDA graph, beside
+    the pair's byte bound (the touched experts' codes and scales, the
+    tokens in and the pairs out, each once) and the plain route's eager
+    ms, and the kernel route's eager ms with its queues. Then token 0's
+    outputs alone, within 63 tokens (16-row tiles) and within 1024 (64-row
+    tiles), bitwise; and ``moe.expert_outputs`` with CUDA's sync debug
+    mode set to error, under the recorder: route ``kernel``, 0 host reads,
+    no synchronising call."""
     import torch
+    from repro_torch import tracing
+    from repro_torch.kernels import moe_expert as K
     from repro_torch.models import moe as MOE
     from repro_torch.models.model import layer_params
-    w = layer_params(params["layers"], 0)["moe"]["wi"]
-    one = time_ms(lambda: MOE._dequant(w, torch.bfloat16), 10)
-    two = time_ms(lambda: (w.q.to(torch.float32) * w.scale).to(torch.bfloat16), 10)
-    check(torch.equal(MOE._dequant(w, torch.bfloat16),
-                      (w.q.to(torch.float32) * w.scale).to(torch.bfloat16)),
-          "the one-pass dequant differs from the f32 one")
-    return {"shape": list(w.q.shape), "one_pass_ms": one, "f32_then_cast_ms": two,
-            "bound_ms": 1e3 * 3 * w.q.numel() / HBM_BYTES_PER_S}
+    p = layer_params(params["layers"], 0)["moe"]
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    E, D, F, k = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.topk
+    gen = torch.Generator().manual_seed(33)
+    x_all = torch.randn((1024, D), generator=gen).to(torch.bfloat16).cuda()
+
+    def routed(T, hot=None):
+        if hot is None:
+            ids = torch.argsort(torch.rand((T, E), generator=gen), dim=1)[:, :k]
+        else:
+            rest = torch.argsort(torch.rand((T, E - 1), generator=gen), dim=1)[:, :k - 1]
+            ids = torch.cat([torch.full((T, 1), hot), rest + (rest >= hot).long()], dim=1)
+        return ids.reshape(-1).cuda()
+
+    def operands(experts):
+        counts, offsets, order = K.queues(experts, E)
+        rows = torch.div(order, k, rounding_mode="floor").to(torch.int32)
+        return rows, order.to(torch.int32), offsets, counts
+
+    def up(x, rows, offsets, counts):
+        return K.moe_expert_swiglu(x, rows, offsets, counts, wi.q, wi.scale, wg.q, wg.scale)
+
+    def down(h, pairs, offsets, counts, T):
+        return K.moe_expert_down(h, pairs, offsets, counts, wo.q, wo.scale, T)
+
+    def pair(x, experts):
+        return MOE.expert_outputs(p, x, experts, x.shape[0], cfg)
+
+    def plain(x, experts):
+        return MOE.plain_experts(p, x, experts, x.shape[0], cfg)[0]
+    out = {}
+    for name, T, hot in MOE_EXPERT_CASES:
+        x, experts = x_all[:T], routed(T, hot)
+        y, y_plain = pair(x, experts), plain(x, experts)
+        unequal = int((y != y_plain).sum())
+        check(unequal == 0, f"moe_expert {name}: {unequal} of {y.numel()} values differ "
+                            f"from the plain route's")
+        rows, pairs, offsets, counts = operands(experts)
+        h = up(x, rows, offsets, counts)
+        touched = int((counts > 0).sum())
+        nbytes = touched * (3 * D * F + 4 * (2 * F + D)) + 2 * T * D + 2 * T * k * D
+        up_ms = graph_ms(lambda: up(x, rows, offsets, counts), 10)
+        down_ms = graph_ms(lambda: down(h, pairs, offsets, counts, T), 10)
+        out[name] = {
+            "tokens": T, "pairs": T * k, "touched_experts": touched,
+            "longest_queue": int(counts.max()), "plan": K.plan(T * k, T, E),
+            "values": y.numel(), "unequal_values": unequal,
+            "swiglu_graph_ms": up_ms, "down_graph_ms": down_ms,
+            "pair_graph_ms": up_ms + down_ms,
+            "pair_eager_ms_with_queues": time_ms(lambda: pair(x, experts), 10),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "former_path_eager_ms": time_ms(lambda: plain(x, experts), 3)}
+        out[name]["roofline_share"] = out[name]["bound_ms"] / out[name]["pair_graph_ms"]
+    experts = routed(1024)
+    tok0 = [pair(x_all[:n], experts[:n * k])[:k] for n in (1, 63, 1024)]
+    check(torch.equal(tok0[0], tok0[1]) and torch.equal(tok0[0], tok0[2]),
+          "moe_expert: token 0's outputs change with its batchmates or the tile size")
+    out["row_bits_alone_63_1024"] = True
+    x, experts = x_all[:63], routed(63)
+    torch.cuda.synchronize()
+    tracing.take()      # drop what a profiled run before recorded
+    tracing.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        MOE.expert_outputs(p, x, experts, 63, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        tracing.disable()
+    spans = [sp.attrs for sp in tracing.take() if sp.name == "moe.experts"]
+    check(len(spans) == 1 and spans[0]["route"] == "kernel" and spans[0]["host_reads"] == 0
+          and spans[0]["passes"] == 1, f"moe.expert_outputs on the card: {spans}")
+    out["kernel_route_span"] = spans[0]
+    return out
 
 
 def check_moe():
@@ -2410,11 +2529,13 @@ def check_moe():
     (``kernel_vs_plain_route``: the kernel is the plain contraction's
     function to 1e-5, not its bits); launches held to the forwards on
     every route (qgemm 7 a layer and 1 per forward: 4 attention and 3
-    shared-expert projections a layer and the lm_head); the int8 KV cache on the kernel
+    shared-expert projections a layer and the lm_head; on the kernel route
+    the expert kernel pair once a MoE layer); the int8 KV cache on the kernel
     route; greedy speculative decode with the target as its own draft on
     the contiguous store (tokens and retire-time rows bitwise plain
     decode's, acceptance within the budget 1.0); ``Engine.embed``; a decode
-    step's profile; then the card against the CPU at full width and
+    step's profile; the expert kernel pair's cases (``moe_expert_cases``);
+    then the card against the CPU at full width and
     REFERENCE_LAYERS layers (check_reference). Returns the summary and the
     launches of every served run."""
     import numpy as np
@@ -2433,6 +2554,12 @@ def check_moe():
         check(all(0 <= t < cfg.vocab for r in run[0] for t in r.tokens),
               f"{MOE_ARCH}: token out of vocab")
         check_route_launches(f"{MOE_ARCH} native_kernel", cfg, run[1], run[2], True)
+        forwards = run[1]["decode_steps"] + run[1]["prefill_batches"]
+        check(run[2]["moe_expert_swiglu"] == run[2]["moe_expert_down"]
+              == forwards * cfg.n_moe_layers,
+              f"{MOE_ARCH}: the expert kernels launched {run[2]['moe_expert_swiglu']} and "
+              f"{run[2]['moe_expert_down']} times over {forwards} forwards of "
+              f"{cfg.n_moe_layers} MoE layers")
         launches.append(run[2])
     check([r.tokens for r in first[0]] == [r.tokens for r in again[0]],
           f"{MOE_ARCH}: a second run of the kernel route gave other tokens")
@@ -2464,8 +2591,9 @@ def check_moe():
           and np.isfinite(emb["embedding"]).all() and np.isfinite(emb["logits"]).all(),
           f"{MOE_ARCH}: Engine.embed gave a bad row")
     profile = profile_arch(cfg, params)
-    profile["dequant_one_expert_matrix_set"] = dequant_times(cfg, params)
     lap("embed_and_profile")
+    expert_kernels = moe_expert_cases(cfg, params)
+    lap("expert_kernels")
     del params
     free_device()
     reference = check_reference(MOE_ARCH, REFERENCE_LAYERS)
@@ -2477,7 +2605,7 @@ def check_moe():
         "batch_invariance": alone, "routes": routes, "kernel_vs_plain": kernel_vs_plain,
         "int8_kv": int8, "speculative": spec,
         "embed": {"seconds": embed_s, "argmax": int(np.argmax(emb["logits"]))},
-        "decode_profile": profile, "reference": reference,
+        "decode_profile": profile, "expert_kernels": expert_kernels, "reference": reference,
         "qgemm_per_forward": per_forward(cfg), "launches": total}
 
 
@@ -3815,8 +3943,10 @@ def all_counters():
     """Every kernel wrapper of the port, by name (its ``launches`` count)."""
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.qdot_serve import qgemv
+    from repro_torch.kernels.moe_expert import moe_expert_down, moe_expert_swiglu
     return {**gptpu_counters(), "paged_decode_attention": paged_decode_attention,
-            "qgemv": qgemv}
+            "qgemv": qgemv, "moe_expert_swiglu": moe_expert_swiglu,
+            "moe_expert_down": moe_expert_down}
 
 
 def read_launches(fn):
@@ -4910,9 +5040,10 @@ def main() -> int:
     tile, sten = t_rows[-1], s_rows[0]          # 4096^3; the apps' 1024^2 field
     paged = p_rows[0]                           # the serving shape
 
-    def counted(name):
-        per = {p: c[name] for p, c in by_path.items()}
+    def counted(*names):
+        per = {p: sum(c.get(n, 0) for n in names) for p, c in by_path.items()}
         return {"launches": sum(per.values()), "launches_by_path": per}
+    experts = moe["expert_kernels"]["decode"]     # 63 decode tokens
 
     kernels = [
         {"name": "qgemm", "route": "cuda",
@@ -4951,6 +5082,14 @@ def main() -> int:
          "ms": gemv["ms"], "plain_ms": gemv["plain_ms"],
          "bound_ms": gemv["bound_ms"], "bound_by": gemv["bound_by"],
          "library_ms": gemv["library_ms"]},
+        {"name": "moe_expert", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_expert.cu",
+         "replaces": "none: the JAX package contracts the experts through XLA",
+         **counted("moe_expert_swiglu", "moe_expert_down"),
+         "unequal_values": experts["unequal_values"],
+         "ms": experts["pair_graph_ms"], "plain_ms": experts["former_path_eager_ms"],
+         "bound_ms": experts["bound_ms"], "bound_by": experts["bound_by"],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

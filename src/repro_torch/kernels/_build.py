@@ -61,6 +61,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, w, scale, out, B, K, N, rb, tn, cluster, depth, stream
         "qgemv_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
     },
+    "moe_expert": {
+        # x, rows, wi, si, wg, sg, h, offsets, counts, E, D, F, bm, slices, stream
+        "moe_expert_swiglu_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        # h, pairs, wo, so, out, offsets, counts, E, F, D, bm, slices, stream
+        "moe_expert_down_launch": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    },
 }
 
 _lock = threading.Lock()

@@ -30,10 +30,10 @@ so the counters read as they would under eager issue.
 
 Whether the graph engages follows from what the step can observe
 (:func:`engages`): CUDA tensors, and a family whose decode body reads
-nothing back to the host. The MoE body does (``torch.bincount`` sizes its
-output from the largest expert id on the host, and above
-``moe.EXPERT_ROWS`` tokens the expert passes read the longest queue), so
-MoE decodes eagerly. CPU and meta tensors always take the eager step. A
+nothing back to the host. MoE decodes eagerly because its family is not
+in GRAPH_FAMILIES, though on the card its body no longer reads the host
+(the routed experts' kernel route counts their queues on the device; see
+``moe.expert_outputs``). CPU and meta tensors always take the eager step. A
 capture that fails raises.
 """
 

@@ -32,24 +32,39 @@ Capacity, three modes (``apply_moe``):
 A row's bits must not depend on its batchmates: the serving engine's
 batch invariance, and a prefill row keeping the bits of the decode step at
 its position. cuBLAS picks its kernel, and with it the order of a row's
-sums, by the call's shape. So both float contractions have one call shape
-for every caller: the router's ``x @ router`` runs ROUTER_ROWS rows at a
-time, zero-padded, and the expert products run as batched products of
-exactly (E, EXPERT_ROWS, D) (pass i takes rows i * EXPERT_ROWS onward of
-every expert's queue). Expert weights are int8 ``QTensor``s on the serving
-path: dequantized per layer and forward (``q * scale`` in f32, then the
-compute dtype, as the reference dequantizes them) and contracted in the
-compute dtype; the shared experts go through ``layers.apply_mlp`` and
-therefore through qgemm.
+sums, by the call's shape. So the router's ``x @ router`` runs ROUTER_ROWS
+rows at a time, zero-padded, for every caller. The routed experts take one
+of two routes (``expert_outputs``), by what the inputs show:
+
+  * ``kernel``: int8 ``QTensor`` weights on a card in a bf16 forward, which
+    is every serving forward there (decode, fused, chunked and suffix
+    prefill, verify, ``Engine.embed``). The kernel pair of
+    ``kernels/moe_expert.py`` runs over the pairs sorted by expert, with
+    each expert's count and offset computed on the device (``scatter_add_``,
+    ``cumsum``): it streams each expert's int8 codes, dequantizes them in
+    the operand load to ``_dequant``'s values and runs one reduction order
+    per row at every tile size. Nothing is read back to the host;
+  * ``plain`` (``plain_experts``): everything else (CPU tensors, float
+    weights under autograd in training, an f32 forward, the dry run's meta
+    tensors). The expert weights are dequantized per layer and forward
+    (``q * scale`` in f32, then the compute dtype, as the reference
+    dequantizes them) and contracted as batched products of exactly (E,
+    EXPERT_ROWS, D): pass i takes rows i * EXPERT_ROWS onward of every
+    expert's queue. It is also the kernel pair's plain version: the
+    card's checks hold the pair to it bit for bit.
+
+The shared experts go through ``layers.apply_mlp`` and therefore through
+qgemm.
 
 Spans (``repro_torch.tracing``, recorded only while it is on), inside the
 serving forwards' ``fwd.moe`` (models/model.py ``ffn``): ``moe.route``
-(router, top-k, gates, dispatch), ``moe.experts`` (dequantization and the
-expert passes; attributes ``pairs``, the (token, k) pairs, ``passes``, the
-batched passes, and ``host_reads``, the values the block read back to the
-host: the sizing of ``torch.bincount`` and, above EXPERT_ROWS tokens, the
-longest queue; on a card each one waits for the device) and
-``moe.shared``.
+(router, top-k, gates, dispatch), ``moe.experts`` (the routed experts;
+attributes ``route``, ``kernel`` or ``plain``, ``pairs``, the (token, k)
+pairs, ``passes``, the batched passes, 1 on the kernel route, and
+``host_reads``, the values the block read back to the host: 0 on the
+kernel route; on the plain route the sizing of ``torch.bincount`` and,
+above EXPERT_ROWS tokens, the longest queue, each a wait for the device on
+a card) and ``moe.shared``.
 """
 
 from __future__ import annotations
@@ -62,10 +77,11 @@ import torch
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tensorizer as tz
+from repro_torch.kernels import moe_expert
 from repro_torch.models import layers as L
 
-# rows per router call and per expert in each batched expert product: every
-# call of every caller has exactly these shapes (module doc)
+# rows per router call and per expert in each batched expert product of the
+# plain route: every call of every caller has exactly these shapes (module doc)
 ROUTER_ROWS = 64
 EXPERT_ROWS = 32
 
@@ -154,50 +170,85 @@ def _dequant(w, dtype: torch.dtype) -> torch.Tensor:
     return torch.mul(w.q, w.scale, out=out)
 
 
+def takes_kernel(p: Dict, x: torch.Tensor) -> bool:
+    """Whether the routed experts run as the kernel pair: int8 weights on a
+    card in a bf16 forward, as every serving forward there is (module doc)."""
+    return (isinstance(p["wi"], tz.QTensor) and x.device.type == "cuda"
+            and x.dtype == torch.bfloat16)
+
+
 def expert_outputs(p: Dict, x: torch.Tensor, experts: torch.Tensor, n_tokens: int,
                    cfg: ArchConfig) -> torch.Tensor:
     """The routed expert MLP ``wo(silu(x @ wi) * (x @ wg))`` of each pair:
-    row n of ``x`` (P, D) through expert ``experts[n]``, in the compute
-    dtype, as batched products of exactly (E, EXPERT_ROWS, D): pass i
-    carries rows i * EXPERT_ROWS onward of each expert's queue, zero rows
-    elsewhere. ``n_tokens`` bounds any expert's queue (a token picks an
-    expert at most once), so the passes need no host read at or below
-    EXPERT_ROWS tokens. On meta tensors (the dry run) the queues are a
-    balanced router's, ``ceil(P / E)`` each. Returns (P, D), under the
-    ``moe.experts`` span (module doc)."""
-    E, R = cfg.n_experts, EXPERT_ROWS
-    P, D = x.shape
+    pair n is token n // k of ``x`` (T, D) through expert ``experts[n]``
+    (``experts`` (T * k,)), in the compute dtype. Returns (P, D) in pair
+    order, under the ``moe.experts`` span (module doc).
+
+    Where :func:`takes_kernel`, the kernel pair (``kernels/moe_expert.py``)
+    over the pairs sorted by expert, their queues counted on the device:
+    one pass, nothing read on the host. Elsewhere :func:`plain_experts`.
+    ``n_tokens`` bounds any expert's queue (a token picks an expert at most
+    once)."""
+    P = experts.shape[0]
     with tracing.span("moe.experts") as sp:
-        reads = 0
-        if x.is_meta:
-            # the dry run has no routing to read: a balanced router's queues
-            counts = experts.new_zeros((E,))
-            longest = -(-P // E)
-        else:
-            # sizes its output from the largest id, read on the host
-            counts = torch.bincount(experts, minlength=E)
+        if not takes_kernel(p, x):
+            out, passes, reads = plain_experts(p, x, experts, n_tokens, cfg)
+            sp.note(route="plain", pairs=P, passes=passes, host_reads=reads)
+            return out
+        k = P // x.shape[0]
+        counts, offsets, order = moe_expert.queues(experts, cfg.n_experts)
+        rows = torch.div(order, k, rounding_mode="floor").to(torch.int32)
+        wi, wg, wo = p["wi"], p["wg"], p["wo"]
+        h = moe_expert.moe_expert_swiglu(x.contiguous(), rows, offsets, counts,
+                                         wi.q, wi.scale, wg.q, wg.scale)
+        out = moe_expert.moe_expert_down(h, order.to(torch.int32), offsets, counts,
+                                         wo.q, wo.scale, n_tokens)
+        sp.note(route="kernel", pairs=P, passes=1, host_reads=0)
+        return out
+
+
+def plain_experts(p: Dict, x: torch.Tensor, experts: torch.Tensor, n_tokens: int,
+                  cfg: ArchConfig) -> Tuple[torch.Tensor, int, int]:
+    """:func:`expert_outputs`' plain route, on any device, and the kernel
+    pair's plain version: the experts dequantized (:func:`_dequant`), then
+    batched products of exactly (E, EXPERT_ROWS, D), pass i carrying rows
+    i * EXPERT_ROWS onward of each expert's queue, zero rows elsewhere. The
+    passes need no host read at or below EXPERT_ROWS tokens. On meta
+    tensors (the dry run) the queues are a balanced router's, ``ceil(P /
+    E)`` each. Returns the (P, D) outputs in pair order, the passes and the
+    values read back to the host."""
+    E, R = cfg.n_experts, EXPERT_ROWS
+    P, D = experts.shape[0], x.shape[1]
+    x = x.repeat_interleave(P // x.shape[0], dim=0)
+    reads = 0
+    if x.is_meta:
+        # the dry run has no routing to read: a balanced router's queues
+        counts = experts.new_zeros((E,))
+        longest = -(-P // E)
+    else:
+        # sizes its output from the largest id, read on the host
+        counts = torch.bincount(experts, minlength=E)
+        reads += 1
+    order = torch.argsort(experts, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(P, device=x.device) - (torch.cumsum(counts, 0) - counts)[
+        experts[order]]
+    if n_tokens <= R:
+        n_pass = 1
+    else:
+        if not x.is_meta:
+            longest = int(counts.max())
             reads += 1
-        order = torch.argsort(experts, stable=True)
-        rank = torch.empty_like(order)
-        rank[order] = torch.arange(P, device=x.device) - (torch.cumsum(counts, 0) - counts)[
-            experts[order]]
-        if n_tokens <= R:
-            n_pass = 1
-        else:
-            if not x.is_meta:
-                longest = int(counts.max())
-                reads += 1
-            n_pass = -(-longest // R)
-        step, slot = rank // R, rank % R
-        xb = x.new_zeros((n_pass, E, R, D))
-        xb[step, experts, slot] = x
-        wi, wg, wo = (_dequant(p[n], x.dtype) for n in ("wi", "wg", "wo"))
-        yb = torch.empty_like(xb)
-        for i in range(n_pass):
-            h = L.silu(torch.bmm(xb[i], wi)) * torch.bmm(xb[i], wg)
-            yb[i] = torch.bmm(h, wo)
-        sp.note(pairs=P, passes=n_pass, host_reads=reads)
-        return yb[step, experts, slot]
+        n_pass = -(-longest // R)
+    step, slot = rank // R, rank % R
+    xb = x.new_zeros((n_pass, E, R, D))
+    xb[step, experts, slot] = x
+    wi, wg, wo = (_dequant(p[n], x.dtype) for n in ("wi", "wg", "wo"))
+    yb = torch.empty_like(xb)
+    for i in range(n_pass):
+        h = L.silu(torch.bmm(xb[i], wi)) * torch.bmm(xb[i], wg)
+        yb[i] = torch.bmm(h, wo)
+    return yb[step, experts, slot], n_pass, reads
 
 
 def combine(out: torch.Tensor, gate: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -248,7 +299,7 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
             ids, gate, keep = dispatch(scores[None], topk, capacity, valid,
                                        norm_topk_prob=cfg.norm_topk_prob)
         ids, gate, keep = (t.reshape(T, topk) for t in (ids, gate, keep))
-    out = expert_outputs(p, xf.repeat_interleave(topk, dim=0), ids.reshape(-1), T, cfg)
+    out = expert_outputs(p, xf, ids.reshape(-1), T, cfg)
     y = combine(out.reshape(T, topk, D), gate, keep)
     probs = torch.softmax(scores, dim=-1)
     f = torch.nn.functional.one_hot(ids, E).sum(dim=1).to(torch.float32).mean(dim=0)
